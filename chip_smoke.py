@@ -7,16 +7,34 @@ Phases, each printing a line:
 
 1. environment: torch and CUDA versions, the card's name and power limit
    (``nvidia-smi``), both TF32 switches turned off and checked;
-2. build: ``csrc/fused_match.cu`` compiled with nvcc for sm_90a;
-3. kernel against plain: ``fused_match`` against ``recognize_linearized``
-   on the card at the tracker's shapes, a ragged masked case, an exact
-   tie and a zero-norm crop (ids equal, conf within 1e-5), and both
-   timed with CUDA events;
-4. the slice: ``tracker_assets`` at 1080p with 64 streams and 8 frame
-   batches (seed 4), a snapshot-PCA model trained on the card, then 8
-   ``process_batch`` steps and one 8-frame ``process_window``; every
+2. build: ``csrc/fused_match.cu`` and ``csrc/gallery_match.cu`` compiled
+   with nvcc for sm_90a, both at once, with ptxas's register and spill
+   counts;
+3. fused kernel against plain: ``fused_match`` against
+   ``recognize_linearized`` on the card at the tracker's shapes, a ragged
+   masked case, an exact tie, a zero-norm crop and k = 300 (ids equal,
+   conf within 1e-5), and both timed with CUDA events;
+4. the tracker slice: ``tracker_assets`` at 1080p with 64 streams and 8
+   frame batches (seed 4), a snapshot-PCA model trained on the card, then
+   8 ``process_batch`` steps and one 8-frame ``process_window``; every
    position and gallery row must be the planted one, and the kernel's
-   launch count must show that both paths went through it.
+   launch count must show that both paths went through it;
+5. gallery kernel against plain: ``gallery_match`` against
+   ``_gallery_match_plain`` at the JAX shape (B 1024, k 128, N 131072) in
+   float32 and bfloat16, ragged B and N, sentinel rows, a valid zero-norm
+   row, a zero-norm feature, a tie across tiles and all-negative cosines;
+   ids equal (on random data a differing id must be a near-tie, plain
+   cosines within 1e-5), conf within 1e-5 (float32) or 2e-3 (bfloat16
+   against a plain version with the same rounding); ``bench.large_gallery``
+   times both;
+6. the large-gallery slice: ``large_gallery_assets`` with B 1024, k 128,
+   N 1,048,573; ``sharded_gallery_match`` on the (1, 1) mesh and on a
+   model = 8 mesh over the one card, in float32 and bfloat16, must name
+   every probe by its planted label and agree with the dense plain
+   reference, with one kernel launch per shard; then ``dp_recognize``
+   against ``recognize`` on 1024 crops, and ``multichip_train_step`` on
+   2048 images of 64 x 64 with k = 128 on both meshes against the dense
+   ``snapshot_pca``.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -30,29 +48,60 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from face_detection_recognization_pca_tpu_torch import bench, device as port_device
-from face_detection_recognization_pca_tpu_torch.models.eigenfaces import train_v1
+from face_detection_recognization_pca_tpu_torch.linalg.pca import snapshot_pca
+from face_detection_recognization_pca_tpu_torch.models.eigenfaces import recognize, train_v1
 from face_detection_recognization_pca_tpu_torch.ops import _build
 from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
     LinearizedModel,
     fused_match,
     recognize_linearized,
 )
+from face_detection_recognization_pca_tpu_torch.ops.gallery_match import (
+    _gallery_match_plain,
+    gallery_match,
+)
+from face_detection_recognization_pca_tpu_torch.parallel import (
+    dp_recognize,
+    make_mesh,
+    multichip_train_step,
+    sharded_gallery_match,
+    snapshot_pca_sharded,
+)
 from face_detection_recognization_pca_tpu_torch.parallel.multistream import (
     MultiStreamRecognizer,
 )
 
 CONF_ATOL = 1e-5  # float32 sums in another order than cuBLAS's; cosines ~1
+CONF_ATOL_BF16 = 2e-3  # bf16 operands, against plain with the same rounding
+NEAR_TIE = 1e-5  # a differing id on random data: plain cosines this close
 STREAMS, BATCHES, SEED = 64, 8, 4
-KERNEL = {
-    "name": "fused_match",
-    "route": "cuda",
-    "source": "face_detection_recognization_pca_tpu_torch/csrc/fused_match.cu",
-    "replaces": "face_detection_recognization_pca_tpu/ops/pallas_kernels.py:122",
+GALLERY_B, GALLERY_K, GALLERY_N, GALLERY_SEED = 1024, 128, 1_048_573, 9
+JAX_SHAPE_N = 131072  # the JAX package's per-chip target (bench_large_gallery)
+TRAIN_N, TRAIN_SIDE, TRAIN_K, TRAIN_SEED = 2048, 64, 128, 6
+# multichip_train_step against the dense snapshot_pca, both float32 on the
+# card: eigenvalues within 1e-4 of the largest, and the rank-128
+# reconstruction proj @ components (well conditioned: component 128 stands
+# 13x above the noise, bench.structured_faces) within 1e-3 of its largest.
+EIG_RTOL, RECON_RTOL = 1e-4, 1e-3
+KERNELS = {
+    "fused_match": {
+        "name": "fused_match",
+        "route": "cuda",
+        "source": "face_detection_recognization_pca_tpu_torch/csrc/fused_match.cu",
+        "replaces": "face_detection_recognization_pca_tpu/ops/pallas_kernels.py:122",
+    },
+    "gallery_match": {
+        "name": "gallery_match",
+        "route": "cuda",
+        "source": "face_detection_recognization_pca_tpu_torch/csrc/gallery_match.cu",
+        "replaces": "face_detection_recognization_pca_tpu/ops/pallas_kernels.py:232",
+    },
 }
 
 
@@ -78,14 +127,17 @@ def phase_environment() -> torch.device:
 
 
 def phase_build() -> None:
+    # One nvcc per source, all started together.
     t0 = time.perf_counter()
-    _build.load("fused_match")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.load, KERNELS))
     seconds = time.perf_counter() - t0
-    log = _build.library_path("fused_match").with_suffix(".log").read_text()
-    ptxas = " | ".join(
-        line.strip() for line in log.splitlines() if "registers" in line or "spill" in line
-    )
-    print(f"[build] fused_match.cu in {seconds:.2f} s; ptxas: {ptxas}")
+    for name in KERNELS:
+        log = _build.library_path(name).with_suffix(".log").read_text()
+        ptxas = " | ".join(
+            line.strip() for line in log.splitlines() if "registers" in line or "spill" in line
+        )
+        print(f"[build] {name}.cu (both in {seconds:.2f} s); ptxas: {ptxas}")
 
 
 def _match_case(dev, gen, b, d, k, n, near, masked=0, tie=None, zero_row=None):
@@ -115,18 +167,6 @@ def _match_case(dev, gen, b, d, k, n, near, masked=0, tie=None, zero_row=None):
     return crops.contiguous(), m, bias, gallery_t, gnorm, mask
 
 
-def _time_ms(fn, iters=200) -> float:
-    for _ in range(10):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def phase_kernel_vs_plain(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -136,6 +176,7 @@ def phase_kernel_vs_plain(dev) -> dict:
                                      masked=3),
         "tie": _match_case(dev, gen, 4, 576, 16, 40, near=[3, 3, 9, 20], tie=(3, 7)),
         "zero_norm": _match_case(dev, gen, 3, 576, 16, 40, near=[1, 2, 3], zero_row=1),
+        "k300": _match_case(dev, gen, 16, 4096, 300, 512, near=list(range(0, 512, 32))),
     }
     max_err = 0.0
     for name, (crops, m, bias, gallery_t, gnorm, mask) in cases.items():
@@ -155,6 +196,8 @@ def phase_kernel_vs_plain(dev) -> dict:
     check(int(zero_ids[1]) == 0 and float(zero_conf[1]) == 0.0, "zero-norm crop scores 0")
     masked_ids = fused_match(*cases["ragged_masked"])[0]
     check(bool((masked_ids < 30).all()), "masked rows never win")
+    k300_ids = fused_match(*cases["k300"])[0]
+    check(k300_ids.tolist() == list(range(0, 512, 32)), "k = 300 finds every near row")
 
     crops, m, bias, gallery_t, gnorm, _ = cases["slice"]
     lin = LinearizedModel(m, bias, gallery_t, gnorm,
@@ -168,7 +211,7 @@ def phase_kernel_vs_plain(dev) -> dict:
         return fused_match(crops, m, bias, gallery_t, gnorm)
 
     # Alternate plain, kernel, kernel, plain inside one call on one card.
-    p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
+    p1, k1, k2, p2 = (bench.cuda_time_ms(fn, 200, 10) for fn in (plain, kernel, kernel, plain))
     timing = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
     print(f"[kernel] slice shape B=64 D=9216 k=64 N=256: kernel {k1:.4f}/{k2:.4f} ms, "
           f"plain {p1:.4f}/{p2:.4f} ms")
@@ -206,12 +249,13 @@ def phase_slice(dev, card: str) -> int:
         torch.cuda.synchronize()
         return out, state
 
-    fused_match.launches = 0
+    fused_match.launches = gallery_match.launches = 0
     outs, state_b = run_batches()
     wout, state_w = run_window()
     launches = fused_match.launches
 
     check(launches == 2 * BATCHES, f"fused_match launched {launches} times, want {2 * BATCHES}")
+    check(gallery_match.launches == 0, "the tracker does not use the gallery kernel")
     check(bench.planted_exact(outs, plants), "process_batch planted-exact")
     check(bench.planted_exact(wout, plants), "process_window planted-exact")
     check(tuple(wout["confidence"].shape) == (BATCHES, STREAMS), "window result shape")
@@ -243,13 +287,248 @@ def phase_slice(dev, card: str) -> int:
     return launches
 
 
+def _plain_cos(feats, gallery_t, gnorm, rows, dt):
+    """The plain version's cosine of each feature row b with gallery row
+    rows[b], its operands rounded to ``dt``."""
+    f = feats.to(dt).float()
+    g = gallery_t.to(dt).float()[:, rows.long()].T
+    fnorm = torch.linalg.vector_norm(feats.float(), dim=1)
+    gn = gnorm[rows.long()]
+    return (f * g).sum(1) * torch.where(fnorm > 0, 1 / fnorm, 0.0) * torch.where(
+        gn > 0, 1 / gn, 0.0)
+
+
+def _gallery_cases(dev, gen):
+    """name -> (feats, gallery_t, gnorm, dtype, random): feature rows, a
+    (k, N) gallery (a ``.T`` view of (N, k) rows or a contiguous (k, N)),
+    its norms with -1 on invalid rows, the operand dtype, and whether the
+    data are random (near-ties allowed)."""
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def norms(g):
+        return torch.linalg.vector_norm(g.float(), dim=1)
+
+    cases = {}
+    feats, gallery = randn(GALLERY_B, GALLERY_K), randn(JAX_SHAPE_N, GALLERY_K)
+    cases["jax_shape_f32"] = (feats, gallery.T, norms(gallery), torch.float32, True)
+    g16 = gallery.to(torch.bfloat16)
+    cases["jax_shape_bf16"] = (feats, g16.T, norms(g16), torch.bfloat16, True)
+    feats, gallery = randn(5, 100), randn(1037, 100)
+    cases["ragged_rows"] = (feats, gallery.T, norms(gallery), torch.float32, True)
+    cases["ragged_k_n"] = (feats, gallery.T.contiguous(), norms(gallery), torch.float32, True)
+    cases["ragged_bf16"] = (feats, gallery.T, norms(gallery), torch.bfloat16, True)
+
+    feats, gallery = randn(8, 64), randn(1000, 64)
+    gallery[300] = feats[1]
+    gallery[700] = feats[0]  # an exact match in an invalid row
+    gn = norms(gallery)
+    gn[700] = -1.0
+    gn[900:] = -1.0
+    cases["sentinel"] = (feats, gallery.T, gn, torch.float32, False)
+
+    gallery, feats = randn(1000, 64).abs(), -randn(8, 64).abs()
+    gallery[[0, 130, 260, 390]] = 0.0  # invalid zero rows in four tiles
+    gn = norms(gallery)
+    gn[[0, 130, 260, 390]] = -1.0
+    cases["all_negative"] = (feats, gallery.T, gn, torch.float32, False)
+    feats = feats.clone()
+    feats[2] = 0.0
+    cases["zero_feature"] = (feats, gallery.T, gn, torch.float32, False)
+    gallery = gallery.clone()
+    gallery[517] = 0.0
+    gn = norms(gallery)
+    gn[[0, 130, 260, 390]] = -1.0
+    cases["zero_row"] = (feats, gallery.T, gn, torch.float32, False)
+
+    feats, gallery = randn(4, 64), randn(1000, 64)
+    gallery[5], gallery[900] = feats[0] * 2.0, feats[0] * 4.0  # the same cosine
+    gallery[77] = gallery[333] = feats[1]
+    cases["tie"] = (feats, gallery.T, norms(gallery), torch.float32, False)
+    return cases
+
+
+def phase_gallery_vs_plain(dev) -> dict:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    cases = _gallery_cases(dev, gen)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    results = {}
+    for name, (feats, gallery_t, gnorm, dt, random) in cases.items():
+        idx_k, best_k = gallery_match(feats, gallery_t, gnorm, operand_dtype=dt)
+        idx_p, best_p = _gallery_match_plain(feats, gallery_t, gnorm, operand_dtype=dt)
+        torch.cuda.synchronize()
+        results[name] = (idx_k, best_k)
+        differ = (idx_k != idx_p).nonzero()[:, 0]
+        gap = 0.0
+        if len(differ):
+            check(random, f"{name}: ids differ at {differ.tolist()[:8]}")
+            cos_k = _plain_cos(feats[differ], gallery_t, gnorm, idx_k[differ], dt)
+            cos_p = _plain_cos(feats[differ], gallery_t, gnorm, idx_p[differ], dt)
+            gap = float((cos_k - cos_p).abs().max())
+            check(gap <= NEAR_TIE, f"{name}: differing ids are no near-ties (gap {gap})")
+        err = float((best_k - best_p).abs().max())
+        errs[dt] = max(errs[dt], err)
+        atol = CONF_ATOL if dt == torch.float32 else CONF_ATOL_BF16
+        print(f"[gallery] {name}: B={feats.shape[0]} k={feats.shape[1]} "
+              f"N={gallery_t.shape[1]} {str(dt)[6:]}: {len(differ)} near-tie ids "
+              f"(max cos gap {gap:.3g}), max|dbest| {err:.3g}")
+        check(err <= atol, f"{name}: best error {err} > {atol}")
+
+    idx, best = results["sentinel"]
+    check(int(idx[1]) == 300 and int(idx[0]) != 700 and bool((idx < 900).all()),
+          "sentinel rows lose, a planted valid row wins")
+    idx, best = results["all_negative"]
+    check(bool((best < 0).all()) and not bool(torch.isin(idx, torch.tensor(
+        [0, 130, 260, 390], device=dev)).any()), "all-negative cosines pick valid rows")
+    idx, best = results["zero_feature"]
+    check(int(idx[2]) == 1 and float(best[2]) == 0.0, "a zero-norm feature scores 0")
+    idx, best = results["zero_row"]
+    check(bool((idx[[0, 1, 3]] == 517).all()) and bool((best == 0.0).all()),
+          "a valid zero-norm row scores 0")
+    idx, _ = results["tie"]
+    check(int(idx[0]) == 5 and int(idx[1]) == 77, "ties across tiles go to the first row")
+
+    timing = bench.large_gallery(GALLERY_B, GALLERY_K, JAX_SHAPE_N, iters=10, seed=GALLERY_SEED,
+                                 device=dev)
+    print(f"[gallery] bench.large_gallery: {json.dumps(timing)}")
+    for name in ("f32", "bf16"):
+        check(timing[f"{name}_planted"] == 1.0, f"{name}: every planted row found")
+    return {
+        "max_abs_err": errs[torch.float32],
+        "ms": timing["f32_kernel_ms"],
+        "plain_ms": timing["f32_plain_ms"],
+        "bf16_max_abs_err": errs[torch.bfloat16],
+        "bf16_ms": timing["bf16_kernel_ms"],
+        "bf16_plain_ms": timing["bf16_plain_ms"],
+    }
+
+
+def _best_time(fn, reps=3) -> float:
+    """Best host-clock seconds of ``reps`` synchronised calls."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def phase_gallery_slice(dev, card: str) -> tuple:
+    t0 = time.perf_counter()
+    feats, gallery, labels, planted = bench.large_gallery_assets(
+        GALLERY_B, GALLERY_K, GALLERY_N, GALLERY_SEED, dev)
+    want = labels[torch.from_numpy(planted).to(dev)]
+    galleries = {torch.float32: gallery, torch.bfloat16: gallery.to(torch.bfloat16)}
+    images = bench.structured_faces(TRAIN_N, TRAIN_SIDE, TRAIN_K, TRAIN_SEED, dev)
+    model, _ = train_v1(images, n_components=TRAIN_K)
+    model.labels = torch.arange(TRAIN_N, dtype=torch.int32, device=dev) % 16
+    noise = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    crops = (images[:GALLERY_B] + 2 * torch.randn(GALLERY_B, TRAIN_SIDE ** 2, generator=noise,
+                                                  device=dev)).reshape(-1, TRAIN_SIDE, TRAIN_SIDE)
+    probes = images[:256].reshape(-1, TRAIN_SIDE, TRAIN_SIDE)
+    meshes = {"(1,1)": make_mesh(1, 1), "(1,8)": make_mesh(1, 8, devices=[dev] * 8)}
+    dp_mesh = make_mesh(8, 1, devices=[dev] * 8)
+    torch.cuda.synchronize()
+    print(f"[slice2] assets + training {time.perf_counter() - t0:.2f} s; gallery "
+          f"{tuple(gallery.shape)} {gallery.numel() * 4 / 1e9:.2f} GB on {card}")
+
+    def match(mesh, dt):
+        return sharded_gallery_match(meshes[mesh], feats, galleries[dt], labels)
+
+    def train(mesh):
+        return multichip_train_step(meshes[mesh], images, probes, TRAIN_K,
+                                    (TRAIN_SIDE, TRAIN_SIDE))
+
+    fused_match.launches = gallery_match.launches = 0
+    matched = {(m, dt): match(m, dt) for dt in galleries for m in meshes}
+    dp = dp_recognize(dp_mesh, model, crops)
+    trained = {m: train(m) for m in meshes}
+    torch.cuda.synchronize()
+    launches = gallery_match.launches
+    want_launches = 3 * sum(mesh.shape["model"] for mesh in meshes.values())
+    check(launches == want_launches, f"gallery_match launched {launches}, want {want_launches}")
+    check(fused_match.launches == 0, "this slice does not use the fused kernel")
+
+    for dt, g in galleries.items():
+        gn = torch.linalg.vector_norm(g, dim=1, dtype=torch.float32)
+        ref_idx, ref_best = _gallery_match_plain(feats, g.T, gn, operand_dtype=dt)
+        ref_ids = labels[ref_idx.long()]
+        atol = CONF_ATOL if dt == torch.float32 else CONF_ATOL_BF16
+        for m in meshes:
+            ids, conf = matched[(m, dt)]
+            err = float((conf - ref_best).abs().max())
+            print(f"[slice2] sharded_gallery_match {m} {str(dt)[6:]}: min conf "
+                  f"{float(conf.min()):.6f}, max|dconf| vs dense plain {err:.3g}")
+            check(torch.equal(ids, want), f"{m} {dt}: every probe named by its planted label")
+            check(torch.equal(ids, ref_ids), f"{m} {dt}: ids equal the dense plain reference")
+            check(err <= atol, f"{m} {dt}: conf error {err} > {atol}")
+        check(torch.equal(matched[("(1,1)", dt)][0], matched[("(1,8)", dt)][0]),
+              f"{dt}: both meshes agree")
+        del ref_idx, ref_best
+
+    ids_s, conf_s = recognize(model, crops)
+    err = float((dp[1] - conf_s).abs().max())
+    check(torch.equal(dp[0], ids_s), "dp_recognize ids equal recognize's")
+    check(err <= CONF_ATOL, f"dp_recognize conf error {err}")
+    check(bool((ids_s == model.labels[:GALLERY_B]).all()), "noisy crops name their images")
+    print(f"[slice2] dp_recognize (8,1) vs recognize, {GALLERY_B} crops: ids equal, "
+          f"max|dconf| {err:.3g}")
+
+    dense = snapshot_pca(images, TRAIN_K)
+    recon_d = dense.projected @ dense.components
+    scale = float(recon_d.abs().max())
+    for m, (ids, conf, eigval) in trained.items():
+        comps, _, proj, _ = snapshot_pca_sharded(meshes[m], images, TRAIN_K)
+        eig_err = float((eigval - dense.eigenvalues).abs().max() / dense.eigenvalues[0])
+        recon_err = float((proj @ comps - recon_d).abs().max()) / scale
+        print(f"[slice2] multichip_train_step {m}: ids {sorted(set(ids.tolist()))}, min conf "
+              f"{float(conf.min()):.6f}, eigenvalue err {eig_err:.3g} of the largest, "
+              f"reconstruction err {recon_err:.3g} of its largest")
+        check(bool((ids == 0).all()) and float(conf.min()) > 0.999, f"{m}: probes self-match")
+        check(bool((eigval[1:] <= eigval[:-1]).all()), f"{m}: eigenvalues descending")
+        check(eig_err <= EIG_RTOL, f"{m}: eigenvalues vs dense {eig_err}")
+        check(recon_err <= RECON_RTOL, f"{m}: reconstruction vs dense {recon_err}")
+    check(torch.equal(trained["(1,1)"][0], trained["(1,8)"][0]), "train step: meshes agree")
+
+    # Kernel and plain at N = 1,048,573 on one shard, for information.
+    n1m = {}
+    for dt, g in galleries.items():
+        gn = torch.linalg.vector_norm(g, dim=1, dtype=torch.float32)
+        fns = (lambda: _gallery_match_plain(feats, g.T, gn, operand_dtype=dt),
+               lambda: gallery_match(feats, g.T, gn, operand_dtype=dt))
+        p1, k1, k2, p2 = (bench.cuda_time_ms(fns[i], 5, 2) for i in (0, 1, 1, 0))
+        n1m[str(dt)[6:]] = {"kernel_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+    print(f"[slice2] N={GALLERY_N} B={GALLERY_B} k={GALLERY_K} CUDA-event ms per call "
+          f"(plain, kernel, kernel, plain): {json.dumps(n1m)}; card {card}")
+
+    # Step time per path, for information: host clock, best of 3.
+    times = {f"sharded {m} {str(dt)[6:]}": _best_time(lambda: match(m, dt))
+             for dt in galleries for m in meshes}
+    times["dp_recognize (8,1)"] = _best_time(lambda: dp_recognize(dp_mesh, model, crops))
+    times.update({f"multichip_train_step {m}": _best_time(lambda: train(m)) for m in meshes})
+    print(f"[slice2] step ms (best of 3): "
+          + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in times.items())
+          + f"; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}")
+    return launches, n1m
+
+
 def main() -> int:
     dev = phase_environment()
     card = torch.cuda.get_device_name(0)
     phase_build()
-    kernel = phase_kernel_vs_plain(dev)
-    launches = phase_slice(dev, card)
-    print(json.dumps({"kernels": [{**KERNEL, "launches": launches, **kernel}]}))
+    fused = phase_kernel_vs_plain(dev)
+    fused_launches = phase_slice(dev, card)
+    torch.cuda.empty_cache()
+    gallery = phase_gallery_vs_plain(dev)
+    torch.cuda.empty_cache()
+    gallery_launches, _ = phase_gallery_slice(dev, card)
+    print(json.dumps({"kernels": [
+        {**KERNELS["fused_match"], "launches": fused_launches, **fused},
+        {**KERNELS["gallery_match"], "launches": gallery_launches, **gallery},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0

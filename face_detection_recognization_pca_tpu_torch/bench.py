@@ -1,19 +1,30 @@
-"""Self-checking tracker workload (port of ``bench._tracker_assets``).
+"""Self-checking workloads (ports of the JAX package's ``bench.py``).
 
-BASELINE config 5: S video streams of 1080p frames, each with a 96x96
-planted face that drifts by up to 2 px per frame batch, tracked by
+The tracker (``bench._tracker_assets``), BASELINE config 5: S video
+streams of 1080p frames, each with a 96x96 planted face that drifts by
+up to 2 px per frame batch, tracked by
 :class:`..parallel.multistream.MultiStreamRecognizer` with a 192x192
 search window.  Gallery row 0 is the exact planted face, so a correct
 step reports every planted position and gallery row 0
 (:func:`planted_exact`).
+
+The large gallery (``bench_large_gallery``): probes that are noisy
+copies of planted rows of a random gallery of up to a million rows
+(:func:`large_gallery_assets`), matched by the streaming gallery kernel
+and by its plain version (:func:`large_gallery`).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Tuple, Union
+from typing import Callable, Dict, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from face_detection_recognization_pca_tpu_torch.ops.gallery_match import (
+    _gallery_match_plain,
+    gallery_match,
+)
 
 SIZES = {"1080p": (1080, 1920), "720p": (720, 1280), "544p": (544, 960)}
 WIN = 192  # search window side (guided scanner: 1.5-2x face box)
@@ -105,3 +116,99 @@ def planted_exact(
         and np.array_equal(y, plants[..., 0])
         and np.all(rows == 0)
     )
+
+
+def large_gallery_assets(b: int, k: int, n: int, seed: int, device: torch.device):
+    """``(feats, gallery, labels, planted)`` for a large-gallery match.
+
+    ``gallery`` (n, k) float32 is standard normal from
+    ``np.random.default_rng(seed)``; ``labels`` (n,) int32 are
+    ``row // 8``; ``planted`` (b,) numpy holds distinct gallery rows, and
+    ``feats`` (b, k) float32 are those rows plus N(0, 0.05^2) noise.  At
+    k = 128 a probe scores about 0.999 against its planted row and under
+    about 0.5 against any other, so every probe must be named by
+    ``labels[planted]``.  The tensors land on ``device``."""
+    rng = np.random.default_rng(seed)
+    gallery = rng.standard_normal((n, k), dtype=np.float32)
+    planted = rng.choice(n, size=b, replace=False)
+    feats = gallery[planted] + np.float32(0.05) * rng.standard_normal((b, k), dtype=np.float32)
+    labels = (np.arange(n) // 8).astype(np.int32)
+    return (
+        torch.from_numpy(feats).to(device),
+        torch.from_numpy(gallery).to(device),
+        torch.from_numpy(labels).to(device),
+        planted,
+    )
+
+
+def cuda_time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms per call of ``fn`` on the card: CUDA events around
+    ``iters`` calls after ``warmup`` calls, then a synchronise."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def large_gallery(
+    b: int = 1024, k: int = 128, n: int = 131072, iters: int = 10, seed: int = 9,
+    device: torch.device = torch.device("cuda"),
+) -> Dict[str, object]:
+    """The streaming gallery kernel against its plain version, float32 and
+    bfloat16 operands, on :func:`large_gallery_assets` (port of
+    ``bench_large_gallery``).
+
+    Times are CUDA-event ms per call, taken as plain, kernel, kernel,
+    plain and averaged per version.  ``*_ids_agree`` is the share of
+    probes on which kernel and plain pick the same row, ``*_planted`` the
+    share on which the kernel picks the planted row.  Needs a CUDA
+    device; it raises on any other."""
+    if device.type != "cuda":
+        raise ValueError(f"large_gallery times a CUDA device, got {device}")
+    feats, gallery, _, planted = large_gallery_assets(b, k, n, seed, device)
+    planted = torch.from_numpy(planted).to(device)
+    out: Dict[str, object] = {
+        "card": torch.cuda.get_device_name(device),
+        "shape": f"B={b} k={k} N={n}",
+        "gflop_per_call": 2.0 * b * k * n / 1e9,
+    }
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        g = gallery.to(dt)
+        gnorm = torch.linalg.vector_norm(g, dim=1, dtype=torch.float32)
+
+        def kernel():
+            return gallery_match(feats, g.T, gnorm, operand_dtype=dt)
+
+        def plain():
+            return _gallery_match_plain(feats, g.T, gnorm, operand_dtype=dt)
+
+        p1, k1, k2, p2 = (cuda_time_ms(fn, iters) for fn in (plain, kernel, kernel, plain))
+        ids_k, best_k = kernel()
+        ids_p, best_p = plain()
+        out[f"{name}_kernel_ms"] = (k1 + k2) / 2
+        out[f"{name}_plain_ms"] = (p1 + p2) / 2
+        out[f"{name}_ids_agree"] = float((ids_k == ids_p).float().mean())
+        out[f"{name}_planted"] = float((ids_k == planted).float().mean())
+        out[f"{name}_max_abs_err"] = float((best_k - best_p).abs().max())
+    return out
+
+
+def structured_faces(n: int, side: int, rank: int, seed: int, device: torch.device):
+    """``(n, side * side)`` float32 training images on ``device`` whose top
+    ``rank`` principal components stand well apart: pixel level 110, plus
+    ``rank`` orthonormal directions with standard deviations 60 * 0.985^i,
+    plus N(0, 1) pixel noise, from ``np.random.default_rng(seed)``.  The
+    gap between component ``rank`` and the noise keeps the top-``rank``
+    subspace well conditioned, so two PCA runs that sum in other orders
+    agree on it closely."""
+    rng = np.random.default_rng(seed)
+    d = side * side
+    basis = np.linalg.qr(rng.standard_normal((d, rank)))[0]  # (d, rank)
+    coeffs = rng.standard_normal((n, rank)) * (60.0 * 0.985 ** np.arange(rank))
+    images = 110.0 + coeffs @ basis.T + rng.standard_normal((n, d))
+    return torch.from_numpy(images.astype(np.float32)).to(device)

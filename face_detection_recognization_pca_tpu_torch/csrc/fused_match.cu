@@ -33,6 +33,11 @@
 // The Pallas kernel's sequential K grid axis becomes the split loop plus
 // the epilogue's fixed-order sum; ragged B and D edges are masked here,
 // so nothing is padded.  No tensor cores and no TF32.
+//
+// Any k >= 1: the projection grid has a third axis over chunks of
+// kKChunk features, and the epilogue stages the features in shared
+// memory one chunk at a time.  At k <= kKChunk both do what a single
+// chunk does, in the same order of sums.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,18 +47,20 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTileB = 8;   // crops per projection block
 constexpr int kTileD = 32;  // rows of m staged per step
-constexpr int kMaxK = 256;
-constexpr int kOutPerThread = kTileB * kMaxK / kThreads;
+constexpr int kKChunk = 256;  // features per projection block and per epilogue stage
+constexpr int kOutPerThread = kTileB * kKChunk / kThreads;
 static_assert(kTileB * kTileD == kThreads, "one staged crop value per thread");
 
 __global__ void __launch_bounds__(kThreads)
 project_partial(const float* __restrict__ crops, const float* __restrict__ m,
                 float* __restrict__ partial, int B, int D, int K, int d_split) {
   __shared__ float cs[kTileB][kTileD];
-  __shared__ float ms[kTileD][kMaxK];
+  __shared__ float ms[kTileD][kKChunk];
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * kTileB;
   const int split = blockIdx.y;
+  const int j0 = blockIdx.z * kKChunk;  // this block's chunk of features
+  const int kc = min(kKChunk, K - j0);
   const int d_begin = split * d_split;
   const int d_end = min(D, d_begin + d_split);
 
@@ -67,17 +74,17 @@ project_partial(const float* __restrict__ crops, const float* __restrict__ m,
       const int gb = b0 + b, gd = d0 + dd;
       cs[b][dd] = (gb < B && gd < d_end) ? crops[(size_t)gb * D + gd] : 0.f;
     }
-    for (int e = tid; e < kTileD * K; e += kThreads) {
-      const int dd = e / K, j = e % K;
+    for (int e = tid; e < kTileD * kc; e += kThreads) {
+      const int dd = e / kc, j = e % kc;
       const int gd = d0 + dd;
-      ms[dd][j] = gd < d_end ? m[(size_t)gd * K + j] : 0.f;
+      ms[dd][j] = gd < d_end ? m[(size_t)gd * K + j0 + j] : 0.f;
     }
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < kOutPerThread; ++r) {
       const int o = tid + r * kThreads;
-      if (o < kTileB * K) {
-        const int b = o / K, j = o % K;
+      if (o < kTileB * kc) {
+        const int b = o / kc, j = o % kc;
         float a = acc[r];
 #pragma unroll 8
         for (int dd = 0; dd < kTileD; ++dd) a = fmaf(cs[b][dd], ms[dd][j], a);
@@ -90,9 +97,9 @@ project_partial(const float* __restrict__ crops, const float* __restrict__ m,
 #pragma unroll
   for (int r = 0; r < kOutPerThread; ++r) {
     const int o = tid + r * kThreads;
-    if (o < kTileB * K) {
-      const int b = o / K, j = o % K;
-      if (b0 + b < B) partial[((size_t)split * B + b0 + b) * K + j] = acc[r];
+    if (o < kTileB * kc) {
+      const int b = o / kc, j = o % kc;
+      if (b0 + b < B) partial[((size_t)split * B + b0 + b) * K + j0 + j] = acc[r];
     }
   }
 }
@@ -103,27 +110,29 @@ __device__ __forceinline__ bool beats(float v, int i, float best_v, int best_i) 
 }
 
 __global__ void __launch_bounds__(kThreads)
-match_epilogue(const float* __restrict__ partial, int n_split,
+match_epilogue(float* partial, int n_split,
                const float* __restrict__ bias,
                const float* __restrict__ gallery_t,
                const float* __restrict__ gnorm,
                const float* __restrict__ mask, int B, int K, int N,
                int* __restrict__ ids, float* __restrict__ conf) {
-  __shared__ float feats[kMaxK];
+  __shared__ float feats[kKChunk];
   __shared__ float red_v[kThreads];
   __shared__ int red_i[kThreads];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+  // The summed features overwrite split 0 of row b, which only this
+  // block reads; each thread reads its partials before it writes.
+  float* const row = partial + (size_t)b * K;
 
+  float sq = 0.f;
   for (int j = tid; j < K; j += kThreads) {
     float f = 0.f;
     for (int s = 0; s < n_split; ++s) f += partial[((size_t)s * B + b) * K + j];
-    feats[j] = f + bias[j];
+    f += bias[j];
+    row[j] = f;
+    sq = fmaf(f, f, sq);
   }
-  __syncthreads();
-
-  float sq = 0.f;
-  for (int j = tid; j < K; j += kThreads) sq = fmaf(feats[j], feats[j], sq);
   red_v[tid] = sq;
   __syncthreads();
   for (int w = kThreads / 2; w > 0; w >>= 1) {
@@ -133,19 +142,38 @@ match_epilogue(const float* __restrict__ partial, int n_split,
   const float fnorm = sqrtf(red_v[0]);
   __syncthreads();  // red_v is reused below
 
-  // Each thread walks its columns in ascending order; its initial index N
-  // loses every tie, so even an all -inf row reports the first column.
   float best = -INFINITY;
   int best_i = N;
-  for (int n = tid; n < N; n += kThreads) {
+  const int n_chunks = (K + kKChunk - 1) / kKChunk;
+  // Each thread walks its columns in ascending order; its initial index N
+  // loses every tie, so even an all -inf row reports the first column.
+  // Every thread runs every pass of both loops (the barriers need it);
+  // threads past the last column only help stage the features.  With
+  // one chunk the features are staged once, before the first pass.
+  for (int n0 = 0; n0 < N; n0 += kThreads) {
+    const int n = n0 + tid;
     float dot = 0.f;
-    for (int j = 0; j < K; ++j) dot = fmaf(feats[j], gallery_t[(size_t)j * N + n], dot);
-    const float denom = fnorm * gnorm[n];
-    float c = denom > 0.f ? dot / denom : 0.f;
-    if (mask != nullptr) c += mask[n];
-    if (beats(c, n, best, best_i)) {
-      best = c;
-      best_i = n;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int j0 = c * kKChunk;
+      const int kc = min(kKChunk, K - j0);
+      if (n_chunks > 1 || n0 == 0) {
+        __syncthreads();
+        for (int j = tid; j < kc; j += kThreads) feats[j] = row[j0 + j];
+        __syncthreads();
+      }
+      if (n < N) {
+        for (int j = 0; j < kc; ++j)
+          dot = fmaf(feats[j], gallery_t[(size_t)(j0 + j) * N + n], dot);
+      }
+    }
+    if (n < N) {
+      const float denom = fnorm * gnorm[n];
+      float c = denom > 0.f ? dot / denom : 0.f;
+      if (mask != nullptr) c += mask[n];
+      if (beats(c, n, best, best_i)) {
+        best = c;
+        best_i = n;
+      }
     }
   }
   red_v[tid] = best;
@@ -168,7 +196,7 @@ match_epilogue(const float* __restrict__ partial, int n_split,
 
 extern "C" {
 
-// K must lie in [1, kMaxK]; the wrapper checks it.  partial is scratch of
+// Any K >= 1; the wrapper checks the shapes.  partial is scratch of
 // ceil(D / d_split) * B * K floats.  Launches on `stream`, does not
 // synchronise, returns cudaGetLastError().
 int fused_match_launch(const float* crops, const float* m, const float* bias,
@@ -177,7 +205,7 @@ int fused_match_launch(const float* crops, const float* m, const float* bias,
                        float* conf, int B, int D, int K, int N, int d_split,
                        cudaStream_t stream) {
   const int n_split = (D + d_split - 1) / d_split;
-  const dim3 grid((B + kTileB - 1) / kTileB, n_split);
+  const dim3 grid((B + kTileB - 1) / kTileB, n_split, (K + kKChunk - 1) / kKChunk);
   project_partial<<<grid, kThreads, 0, stream>>>(crops, m, partial, B, D, K, d_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -20,6 +20,11 @@ from face_detection_recognization_pca_tpu_torch.linalg.standardize import (
     ScalerParams,
     scaler_transform,
 )
+from face_detection_recognization_pca_tpu_torch.ops.preprocess import preprocess_crops
+from face_detection_recognization_pca_tpu_torch.ops.similarity import (
+    best_match,
+    cosine_gallery,
+)
 
 PARAM_NAMES = (
     "components",  # (k, d)
@@ -99,6 +104,29 @@ def project_vectors(model: EigenfacesModel, flat: torch.Tensor) -> torch.Tensor:
     if model.scaler_mean is not None:
         flat = scaler_transform(flat, ScalerParams(model.scaler_mean, model.scaler_scale))
     return (flat - model.projection_mean) @ model.components.T
+
+
+def extract_features(
+    model: EigenfacesModel, crops: torch.Tensor, exact: bool = False
+) -> torch.Tensor:
+    """``(B, h, w)`` gray or ``(B, h, w, 3)`` BGR crops -> ``(B, k)``
+    eigenspace features: resize to the model's face shape, flatten,
+    scale and project, in the components' dtype."""
+    h, w = model.face_shape
+    flat = preprocess_crops(crops, (w, h), exact=exact, dtype=model.components.dtype)
+    return project_vectors(model, flat)
+
+
+def recognize(
+    model: EigenfacesModel,
+    crops: torch.Tensor,
+    threshold: float = 0.7,
+    exact: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Crop batch -> ``(person_ids, confidences)``: features, gallery
+    cosine, first-maximum argmax, and id -1 below ``threshold``."""
+    feats = extract_features(model, crops, exact=exact)
+    return best_match(cosine_gallery(feats, model.gallery), model.labels, threshold)
 
 
 def from_params(

@@ -25,7 +25,6 @@ import torch
 from face_detection_recognization_pca_tpu_torch.ops import _build
 from face_detection_recognization_pca_tpu_torch.ops.resize import _interp_matrix
 
-MAX_K = 256  # kMaxK in csrc/fused_match.cu
 # Rows of M per projection block in the kernel's first phase: 128 gives
 # 72 splits at D = 9216, enough blocks to hide latency (csrc/fused_match.cu).
 _D_SPLIT = 128
@@ -133,10 +132,8 @@ def _check_args(crops_flat, m, bias, gallery_t, gnorm, mask):
         raise ValueError("crops_flat, m and gallery_t must be 2-D")
     b, d = crops_flat.shape
     k, n = gallery_t.shape
-    if b < 1 or d < 1 or n < 1:
-        raise ValueError(f"empty operand: B={b}, D={d}, N={n}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside the kernel's range [1, {MAX_K}]")
+    if b < 1 or d < 1 or k < 1 or n < 1:
+        raise ValueError(f"empty operand: B={b}, D={d}, k={k}, N={n}")
     want = {"m": (d, k), "bias": (k,), "gnorm": (n,), "mask": (n,)}
     for name, shape in want.items():
         if name in named and tuple(named[name].shape) != shape:

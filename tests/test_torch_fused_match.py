@@ -177,8 +177,17 @@ def test_fused_match_rejects_bad_args(field, bad, exc):
 
 
 def test_fused_match_rejects_k_beyond_kernel_limit():
-    args = _good_args(k=tfm.MAX_K + 1)
-    with pytest.raises(ValueError, match="outside the kernel's range"):
+    """The kernel walks k in chunks, so its only limit is k >= 1: k = 300
+    (past one 256-feature chunk) is taken and equals the plain version,
+    and an empty k is refused."""
+    args = _good_args(k=300)
+    ids, conf = tfm.fused_match(**args)
+    lin = tfm.LinearizedModel(args["m"], args["bias"], args["gallery_t"], args["gnorm"],
+                              torch.zeros(12, dtype=torch.int32), (1, 30))
+    ids_p, conf_p = tfm.recognize_linearized(lin, args["crops_flat"], args["mask"])
+    assert torch.equal(ids, ids_p) and torch.equal(conf, conf_p)
+    args = _good_args(k=0)
+    with pytest.raises(ValueError, match="empty operand"):
         tfm.fused_match(**args)
 
 

@@ -1,18 +1,21 @@
-"""Tests that need a CUDA GPU: the fused-match kernel against its plain
-PyTorch version on the card.  They skip without a GPU; on a machine with
-one, run ``python -m pytest tests/test_torch_gpu.py -m gpu``.  This file
-imports no JAX, so it runs where only the port is installed."""
+"""Tests that need a CUDA GPU: the fused-match and gallery-match kernels
+against their plain PyTorch versions on the card, and the slices going
+through them.  They skip without a GPU; on a machine with one, run
+``python -m pytest tests/test_torch_gpu.py -m gpu``.  This file imports
+no JAX, so it runs where only the port is installed."""
 
 import pytest
 import torch
 
 from face_detection_recognization_pca_tpu_torch.ops import fused_match as tfm
+from face_detection_recognization_pca_tpu_torch.ops import gallery_match as tgm
 
 torch.set_num_threads(1)
 
 # Float32 sums in another order than cuBLAS's; cosines are <= 1.
 CONF_ATOL = 1e-5
-
+# bf16 operands, against a plain version with the same rounding.
+CONF_ATOL_BF16 = 2e-3
 
 
 @pytest.fixture()
@@ -49,6 +52,28 @@ def test_kernel_matches_plain_on_card(cuda_device, b, d, k, n, masked):
 
 
 @pytest.mark.gpu
+def test_kernel_takes_k_300(cuda_device):
+    """Past one 256-feature chunk of the kernel."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    b, d, k, n = 16, 4096, 300, 512
+    m = torch.randn(d, k, generator=g, device=cuda_device) / d ** 0.5
+    bias = torch.randn(k, generator=g, device=cuda_device)
+    base = 25 * torch.randn(n, d, generator=g, device=cuda_device)
+    feats = base @ m + bias
+    gallery_t = feats.T.contiguous()
+    gnorm = torch.linalg.vector_norm(feats, dim=1)
+    near = torch.arange(0, n, n // b, device=cuda_device)
+    crops = (base[near] + 5 * torch.randn(b, d, generator=g, device=cuda_device)).contiguous()
+    ids_k, conf_k = tfm.fused_match(crops, m, bias, gallery_t, gnorm)
+    lin = tfm.LinearizedModel(m, bias, gallery_t, gnorm, torch.zeros(n, dtype=torch.int32),
+                              (1, d))
+    ids_p, conf_p = tfm.recognize_linearized(lin, crops)
+    torch.cuda.synchronize()
+    assert torch.equal(ids_k, ids_p) and torch.equal(ids_k.long(), near)
+    assert float((conf_k - conf_p).abs().max()) <= CONF_ATOL
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_mixed_devices(cuda_device):
     args = [torch.zeros(2, 8, device=cuda_device), torch.zeros(8, 4), torch.zeros(4),
             torch.zeros(4, 3), torch.ones(3)]
@@ -79,3 +104,83 @@ def test_small_slice_on_card_runs_through_the_kernel(cuda_device):
     wout, _ = msr.process_window(frames, msr.init_state(streams, (h, w), boxes0))
     assert tfm.fused_match.launches == before + batches
     assert bench.planted_exact(wout, plants)
+
+
+def _gallery(device, b, k, n, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    feats = torch.randn(b, k, generator=g, device=device)
+    gallery = torch.randn(n, k, generator=g, device=device)
+    planted = torch.arange(b, device=device) * (n // b)
+    gallery[planted] = feats  # planted winners
+    norms = torch.linalg.vector_norm(gallery, dim=1)
+    gnorm = norms.clone()
+    gnorm[n // b + 1 :: 7] = -1.0  # sentinel rows
+    gnorm[planted] = norms[planted]  # none of them planted
+    return feats, gallery, gnorm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k,n", [(5, 100, 1037), (70, 128, 4099), (1, 7, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["rows", "k_n"])
+def test_gallery_kernel_matches_plain_on_card(cuda_device, b, k, n, dtype, layout):
+    feats, gallery, gnorm = _gallery(cuda_device, b, k, n, seed=b + n)
+    gallery_t = gallery.to(dtype).T
+    if layout == "k_n":
+        gallery_t = gallery_t.contiguous()
+    before = tgm.gallery_match.launches
+    idx_k, best_k = tgm.gallery_match(feats, gallery_t, gnorm, operand_dtype=dtype)
+    assert tgm.gallery_match.launches == before + 1
+    idx_p, best_p = tgm._gallery_match_plain(feats, gallery_t, gnorm, operand_dtype=dtype)
+    torch.cuda.synchronize()
+    atol = CONF_ATOL if dtype == torch.float32 else CONF_ATOL_BF16
+    assert torch.equal(idx_k, idx_p)
+    assert float((best_k - best_p).abs().max()) <= atol
+    if n > 1:
+        assert torch.equal(idx_k.long(), torch.arange(b, device=cuda_device) * (n // b))
+
+
+@pytest.mark.gpu
+def test_gallery_kernel_sentinels_ties_and_zero_norms_on_card(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    b, k, n = 4, 64, 1000
+    gallery = torch.randn(n, k, generator=g, device=cuda_device).abs()
+    feats = -torch.randn(b, k, generator=g, device=cuda_device).abs()
+    feats[1] = 0.0  # a zero-norm feature scores 0 on every valid row
+    gallery[700] = feats[0]  # an exact match in an invalid row
+    gallery[:3] = 0.0  # invalid zero rows: a norm of 0 would score 0 and win
+    gnorm = torch.linalg.vector_norm(gallery, dim=1)
+    gnorm[:3] = -1.0
+    gnorm[700] = -1.0
+    idx, best = tgm.gallery_match(feats, gallery.T, gnorm)
+    assert int(idx[1]) == 3 and float(best[1]) == 0.0
+    assert (best[[0, 2, 3]] < 0).all() and (idx >= 3).all() and (idx != 700).all()
+    gallery[517] = 0.0  # a valid zero-norm row now beats every negative cosine
+    gnorm[517] = 0.0
+    idx, best = tgm.gallery_match(feats, gallery.T, gnorm)
+    assert (idx[[0, 2, 3]] == 517).all() and (best[[0, 2, 3]] == 0.0).all()
+    # A tie across tiles of 128 rows: the first one wins.
+    gallery = torch.randn(n, k, generator=g, device=cuda_device)
+    feats = torch.randn(b, k, generator=g, device=cuda_device)
+    gallery[900] = feats[0] * 4.0
+    gallery[5] = feats[0] * 2.0
+    idx, _ = tgm.gallery_match(feats, gallery.T, torch.linalg.vector_norm(gallery, dim=1))
+    assert int(idx[0]) == 5
+
+
+@pytest.mark.gpu
+def test_sharded_gallery_match_runs_the_kernel_once_per_shard(cuda_device):
+    from face_detection_recognization_pca_tpu_torch import bench
+    from face_detection_recognization_pca_tpu_torch.parallel import (
+        make_mesh,
+        sharded_gallery_match,
+    )
+
+    feats, gallery, labels, planted = bench.large_gallery_assets(32, 64, 5003, 2, cuda_device)
+    mesh = make_mesh(1, 4, devices=[cuda_device] * 4)
+    want = labels[torch.from_numpy(planted).to(cuda_device)]
+    for dtype in (torch.float32, torch.bfloat16):
+        before = tgm.gallery_match.launches
+        ids, conf = sharded_gallery_match(mesh, feats, gallery.to(dtype), labels)
+        assert tgm.gallery_match.launches == before + 4
+        assert torch.equal(ids, want) and float(conf.min()) > 0.99

@@ -1,5 +1,6 @@
-"""Port parity: ``ops/resize.py``, ``ops/similarity.py`` and
-``models/eigenfaces.py`` (training, projection, weight carry-over)."""
+"""Port parity: ``ops/resize.py``, ``ops/similarity.py``, ``ops/color.py``,
+``ops/preprocess.py`` and ``models/eigenfaces.py`` (training, projection,
+feature extraction, recognition, weight carry-over)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -7,9 +8,13 @@ import pytest
 import torch
 
 from face_detection_recognization_pca_tpu.models import eigenfaces as jef
+from face_detection_recognization_pca_tpu.ops import color as jcolor
+from face_detection_recognization_pca_tpu.ops import preprocess as jpre
 from face_detection_recognization_pca_tpu.ops import resize as jresize
 from face_detection_recognization_pca_tpu.ops import similarity as jsim
 from face_detection_recognization_pca_tpu_torch.models import eigenfaces as tef
+from face_detection_recognization_pca_tpu_torch.ops import color as tcolor
+from face_detection_recognization_pca_tpu_torch.ops import preprocess as tpre
 from face_detection_recognization_pca_tpu_torch.ops import resize as tresize
 from face_detection_recognization_pca_tpu_torch.ops import similarity as tsim
 
@@ -108,3 +113,78 @@ def test_from_params_carries_a_jax_model_over(schema):
         np.asarray(jef.project_vectors(jmodel, jnp.asarray(flat))),
         rtol=1e-5, atol=1e-4,
     )
+
+
+def test_color_conversions_match_jax():
+    rng = np.random.default_rng(8)
+    bgr = rng.integers(0, 256, (3, 17, 11, 3), dtype=np.uint8)
+    bgr[0, 0, :3] = [[0, 0, 0], [255, 255, 255], [1, 128, 254]]
+    exact = tcolor.bgr_to_gray_exact(torch.from_numpy(bgr))
+    assert exact.dtype == torch.uint8 and exact.shape == (3, 17, 11)
+    np.testing.assert_array_equal(exact.numpy(), np.asarray(jcolor.bgr_to_gray_exact(bgr)))
+    for name in ("bgr_to_gray", "rgb_to_gray"):
+        got = getattr(tcolor, name)(torch.from_numpy(bgr))
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(getattr(jcolor, name)(bgr)),
+                                   rtol=1e-6, atol=1e-4)
+    # The float path stays within one uint8 step of the exact one.
+    assert float((tcolor.bgr_to_gray(torch.from_numpy(bgr)) - exact).abs().max()) <= 1.0
+
+
+@pytest.mark.parametrize("shape", [(4, 30, 26), (4, 30, 26, 3)])
+def test_preprocess_crops_match_jax(shape):
+    rng = np.random.default_rng(9)
+    crops = rng.integers(0, 256, shape, dtype=np.uint8)
+    ref = np.asarray(jpre.preprocess_crops(jnp.asarray(crops), (20, 24)))
+    got = tpre.preprocess_crops(torch.from_numpy(crops), (20, 24))
+    assert got.shape == ref.shape == (4, 480) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-3)
+    one = tpre.preprocess_crop(torch.from_numpy(crops[1]), (20, 24))
+    np.testing.assert_allclose(one.numpy(), got[1].numpy(), rtol=1e-6, atol=1e-4)
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+        tpre.preprocess_crops(torch.from_numpy(crops), (20, 24), exact=True)
+
+
+def _jax_model(schema, rng, d_side=16, n=18, k=7):
+    d = d_side * d_side
+    images = rng.uniform(0, 255, (n, d)).astype(np.float32)
+    labels = jnp.asarray(np.arange(n, dtype=np.int32) % 5)
+    if schema == "v1":
+        jmodel, _ = jef.train_v1(jnp.asarray(images), n_components=k)
+        jmodel = jmodel.replace(labels=labels)
+    else:
+        jmodel, _ = jef.train_v2(jnp.asarray(images), labels, n_components=k,
+                                 face_shape=(d_side, d_side))
+    jmodel = jmodel.replace(**{
+        name: getattr(jmodel, name).astype(jnp.float32)
+        for name in tef.PARAM_NAMES
+        if getattr(jmodel, name) is not None and name != "labels"
+    })
+    return jmodel, images
+
+
+@pytest.mark.parametrize("schema", ["v1", "v2"])
+@pytest.mark.parametrize("color", ["gray", "bgr"])
+def test_extract_features_and_recognize_match_jax(schema, color):
+    """Crops of 21 x 19 (resized to the 16 x 16 face), gray or BGR; half
+    of them near training faces so ids above the threshold show up."""
+    rng = np.random.default_rng(10)
+    jmodel, images = _jax_model(schema, rng)
+    tmodel = tef.from_params(_params(jmodel), jmodel.face_shape, jmodel.schema,
+                             torch.device("cpu"))
+    faces = images[:6].reshape(6, 16, 16)
+    near = np.asarray(jresize.resize_bilinear(jnp.asarray(faces), (19, 21)))
+    crops = np.concatenate([near + rng.normal(0, 2, near.shape),
+                            rng.uniform(0, 255, (6, 21, 19))]).astype(np.float32)
+    if color == "bgr":
+        crops = np.repeat(np.clip(crops, 0, 255).astype(np.uint8)[..., None], 3, axis=-1)
+    feats_j = np.asarray(jef.extract_features(jmodel, jnp.asarray(crops)))
+    feats_t = tef.extract_features(tmodel, torch.from_numpy(crops))
+    assert feats_t.dtype == torch.float32 and feats_t.shape == (12, 7)
+    scale = np.abs(feats_j).max()
+    np.testing.assert_allclose(feats_t.numpy(), feats_j, rtol=0, atol=1e-5 * scale)
+    ids_j, conf_j = jef.recognize(jmodel, jnp.asarray(crops), threshold=0.9)
+    ids_t, conf_t = tef.recognize(tmodel, torch.from_numpy(crops), threshold=0.9)
+    np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
+    np.testing.assert_allclose(conf_t.numpy(), np.asarray(conf_j), rtol=0, atol=1e-5)
+    assert (ids_t[:6] == torch.arange(6) % 5).all()

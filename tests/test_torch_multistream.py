@@ -101,6 +101,44 @@ def test_process_batch_and_window_match_jax(setup, rng):
     np.testing.assert_array_equal(tout["x"].numpy(), np.stack([p[:, 1] for _, p in frames]))
 
 
+def test_k300_model_matches_jax(setup, rng):
+    """A model with 300 components, past the 256 of one kernel chunk: the
+    JAX tracker recognizes it inline, and the port's fused_match must
+    take it too.  Carried over with from_params; same frames, both paths."""
+    face, gallery, _, _ = setup
+    k, d = 300, TPL * TPL
+    comps = np.linalg.qr(rng.normal(size=(d, k)))[0].T.astype(np.float32)
+    pmean = gallery.mean(0).astype(np.float32)
+    jmodel = jef.EigenfacesModel(
+        components=jnp.asarray(comps),
+        projection_mean=jnp.asarray(pmean),
+        mean_face=jnp.asarray(pmean),
+        gallery=jnp.asarray(((gallery - pmean) @ comps.T).astype(np.float32)),
+        labels=jnp.asarray(np.arange(32, dtype=np.int32) % 4),
+        face_shape=(TPL, TPL),
+        schema="v1",
+    )
+    params = {
+        name: None if getattr(jmodel, name) is None else np.asarray(getattr(jmodel, name))
+        for name in tef.PARAM_NAMES
+    }
+    tmodel = tef.from_params(params, jmodel.face_shape, jmodel.schema, CPU)
+    assert tmodel.n_components == 300
+    jmsr = jms.MultiStreamRecognizer(jmodel, face, window=WIN)
+    tmsr = tms.MultiStreamRecognizer(tmodel, face, window=WIN)
+    frames = [_frames(face, rng, t) for t in range(2)]
+    jstate, tstate = jmsr.init_state(S, (H, W)), tmsr.init_state(S, (H, W))
+    for f, plants in frames:
+        jout, jstate = jmsr.process_batch(jnp.asarray(f), jstate)
+        tout, tstate = tmsr.process_batch(torch.from_numpy(f), tstate)
+        _assert_same(tout, jout)
+        np.testing.assert_array_equal(tout["y"].numpy(), plants[:, 0])
+    stack = np.stack([f for f, _ in frames])
+    jout, _ = jmsr.process_window(jnp.asarray(stack), jmsr.init_state(S, (H, W)))
+    tout, _ = tmsr.process_window(torch.from_numpy(stack), tmsr.init_state(S, (H, W)))
+    _assert_same(tout, jout)
+
+
 def test_port_trained_model_locks_on_exactly(setup, rng):
     """A model trained by the port's own train_v1, with the exact face as
     gallery row 0, finds every plant and names row 0."""
