@@ -9,11 +9,14 @@ Phases, each printing a line:
    (``nvidia-smi``), both TF32 switches turned off and checked;
 2. build: ``csrc/fused_match.cu`` and ``csrc/gallery_match.cu`` compiled
    with nvcc for sm_90a, both at once, with ptxas's register and spill
-   counts;
+   counts per kernel, and the number of ``HMMA`` (tensor-core)
+   instructions in each kernel of the gallery library from ``cuobjdump
+   --dump-sass``: every instantiation of the tile kernel must have some;
 3. fused kernel against plain: ``fused_match`` against
    ``recognize_linearized`` on the card at the tracker's shapes, a ragged
    masked case, an exact tie, a zero-norm crop and k = 300 (ids equal,
-   conf within 1e-5), and both timed with CUDA events;
+   conf within 1e-5); both timed with CUDA events beside ``crops @ m``
+   (``library_ms``) and the card's bound for the same work;
 4. the tracker slice: ``tracker_assets`` at 1080p with 64 streams and 8
    frame batches (seed 4), a snapshot-PCA model trained on the card, then
    8 ``process_batch`` steps and one 8-frame ``process_window``; every
@@ -26,18 +29,25 @@ Phases, each printing a line:
    ids equal (on random data a differing id must be a near-tie, plain
    cosines within 1e-5), conf within 1e-5 (float32) or 2e-3 (bfloat16
    against a plain version with the same rounding); ``bench.large_gallery``
-   times both;
+   times both, beside ``torch.matmul`` of the same operands
+   (``library_ms``, the product alone) and the card's bound;
 6. the large-gallery slice: ``large_gallery_assets`` with B 1024, k 128,
    N 1,048,573; ``sharded_gallery_match`` on the (1, 1) mesh and on a
    model = 8 mesh over the one card, in float32 and bfloat16, must name
    every probe by its planted label and agree with the dense plain
-   reference, with one kernel launch per shard; then ``dp_recognize``
+   reference, with one kernel launch per shard (kernel, plain,
+   ``library_ms`` and bound timed on one shard); then ``dp_recognize``
    against ``recognize`` on 1024 crops, and ``multichip_train_step`` on
    2048 images of 64 x 64 with k = 128 on both meshes against the dense
    ``snapshot_pca``.
 
-The line before the last is a JSON object describing each kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
+The line before the last is a JSON object describing each kernel, with
+its time, its plain version's, ``library_ms``, and ``bound_ms``: the
+larger of the bytes it must move over 3.35 TB/s and its operations over
+the published dense peak of their type (fp32 67, TF32 495, bf16 989
+TFLOP/s; float32 gallery products count as three TF32 products, the
+3xTF32 the kernel runs).  The last line is ``{"ok": true, "device":
+{...}}``.  Any failed check raises,
 so the script exits nonzero without that line, as it does when PyTorch
 sees no CUDA device.
 """
@@ -45,6 +55,7 @@ sees no CUDA device.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -89,6 +100,9 @@ TRAIN_N, TRAIN_SIDE, TRAIN_K, TRAIN_SEED = 2048, 64, 128, 6
 # reconstruction proj @ components (well conditioned: component 128 stands
 # 13x above the noise, bench.structured_faces) within 1e-3 of its largest.
 EIG_RTOL, RECON_RTOL = 1e-4, 1e-3
+# One H100 SXM, published dense peaks at 700 W (NVIDIA's data sheet).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 KERNELS = {
     "fused_match": {
         "name": "fused_match",
@@ -110,6 +124,27 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+def bound(nbytes: float, flops: float, kind: str) -> dict:
+    """The least ms the card could take: bytes over HBM's rate or FLOPs over
+    the peak of their type, whichever is larger, and which one it is."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[kind] * 1e3
+    if by_bytes >= by_ops:
+        return {"bound_ms": by_bytes, "bound_by": "bytes"}
+    return {"bound_ms": by_ops, "bound_by": "operations"}
+
+
+def gallery_bound(b: int, k: int, n: int, dt: torch.dtype) -> dict:
+    """gallery_match on float32 features and an (n, k) gallery in ``dt``:
+    each input read once, idx and best written once; 2 b k n products, as
+    three TF32 products each for float32 (3xTF32), one bf16 product each
+    for bf16."""
+    nbytes = b * k * 4 + n * k * (2 if dt == torch.bfloat16 else 4) + n * 4 + b * 8
+    if dt == torch.float32:
+        return bound(nbytes, 3 * 2.0 * b * k * n, "tf32")
+    return bound(nbytes, 2.0 * b * k * n, "bf16")
+
+
 def phase_environment() -> torch.device:
     dev = port_device.require_cuda()
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -126,7 +161,49 @@ def phase_environment() -> torch.device:
     return dev
 
 
-def phase_build() -> None:
+def _kernel_label(mangled: str) -> str:
+    """A short name for a kernel's mangled symbol: the gallery tile
+    kernel's instantiations as ``tiles<dtype,layout,fill>``."""
+    m = re.search(r"gallery_match_tilesI(f|13__nv_bfloat16)Lb([01])ELb([01])E", mangled)
+    if m:
+        return (f"tiles<{'f32' if m[1] == 'f' else 'bf16'},{'rows' if m[2] == '1' else 'k_n'},"
+                f"{'cp.async' if m[3] == '1' else 'elements'}>")
+    # _Z<len><name>, or _ZN<len><namespace><len><name> for a kernel in an
+    # anonymous namespace.
+    m = re.match(r"_ZN(\d+)", mangled)
+    at = m.end() + int(m[1]) if m else 2
+    m = re.match(r"\d+", mangled[at:])
+    return mangled[at + m.end():at + m.end() + int(m[0])] if m else mangled
+
+
+def _ptxas_counts(log: str) -> dict:
+    """Kernel -> its registers and spills, from nvcc's ``-Xptxas -v``."""
+    out, name, spill = {}, None, ""
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = _kernel_label(m[1])
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = f"spill {m[1]}/{m[2]} B"
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            out[name] = f"{m[1]} regs, {spill}"
+    return out
+
+
+def _hmma_counts(lib_path) -> tuple:
+    """(command, kernel -> HMMA instructions in its SASS) by cuobjdump."""
+    cmd = [_build.cuda_tool("cuobjdump"), "--dump-sass", str(lib_path)]
+    sass = subprocess.run(cmd, capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            name = _kernel_label(m[1])
+            counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    return cmd, counts
+
+
+def phase_build() -> dict:
     # One nvcc per source, all started together.
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -134,10 +211,16 @@ def phase_build() -> None:
     seconds = time.perf_counter() - t0
     for name in KERNELS:
         log = _build.library_path(name).with_suffix(".log").read_text()
-        ptxas = " | ".join(
-            line.strip() for line in log.splitlines() if "registers" in line or "spill" in line
-        )
+        ptxas = "; ".join(f"{k} {v}" for k, v in _ptxas_counts(log).items())
         print(f"[build] {name}.cu (both in {seconds:.2f} s); ptxas: {ptxas}")
+    lib = _build.library_path("gallery_match")
+    cmd, hmma = _hmma_counts(lib)
+    cmd[0], cmd[-1] = "cuobjdump", str(lib.relative_to(lib.parents[2]))
+    print(f"[build] {' '.join(cmd)}: HMMA instructions per kernel {json.dumps(hmma)}")
+    tiles = {k: v for k, v in hmma.items() if k.startswith("tiles<")}
+    check(len(tiles) == 8 and all(tiles.values()),
+          f"every gallery tile kernel runs on the tensor cores: {tiles}")
+    return tiles
 
 
 def _match_case(dev, gen, b, d, k, n, near, masked=0, tie=None, zero_row=None):
@@ -210,11 +293,20 @@ def phase_kernel_vs_plain(dev) -> dict:
     def kernel():
         return fused_match(crops, m, bias, gallery_t, gnorm)
 
-    # Alternate plain, kernel, kernel, plain inside one call on one card.
-    p1, k1, k2, p2 = (bench.cuda_time_ms(fn, 200, 10) for fn in (plain, kernel, kernel, plain))
-    timing = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+    def library():  # the projection alone, a yardstick the port never calls
+        return crops @ m
+
+    # Alternate plain, kernel, library, library, kernel, plain in one call.
+    p1, k1, l1, l2, k2, p2 = (bench.cuda_time_ms(fn, 200, 10)
+                              for fn in (plain, kernel, library, library, kernel, plain))
+    (b, d), (k, n) = crops.shape, gallery_t.shape
+    nbytes = 4 * (b * d + d * k + k + k * n + n + 2 * b)
+    timing = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
+              **bound(nbytes, 2.0 * b * d * k + 2.0 * b * k * n, "fp32"), "bf16_bound_ms": None}
     print(f"[kernel] slice shape B=64 D=9216 k=64 N=256: kernel {k1:.4f}/{k2:.4f} ms, "
-          f"plain {p1:.4f}/{p2:.4f} ms")
+          f"plain {p1:.4f}/{p2:.4f} ms, crops @ m {l1:.4f}/{l2:.4f} ms; bound "
+          f"{timing['bound_ms']:.5f} ms ({timing['bound_by']}), share "
+          f"{timing['bound_ms'] / timing['ms']:.3f}")
     return {"max_abs_err": max_err, **timing}
 
 
@@ -395,14 +487,26 @@ def phase_gallery_vs_plain(dev) -> dict:
     print(f"[gallery] bench.large_gallery: {json.dumps(timing)}")
     for name in ("f32", "bf16"):
         check(timing[f"{name}_planted"] == 1.0, f"{name}: every planted row found")
-    return {
-        "max_abs_err": errs[torch.float32],
-        "ms": timing["f32_kernel_ms"],
-        "plain_ms": timing["f32_plain_ms"],
-        "bf16_max_abs_err": errs[torch.bfloat16],
-        "bf16_ms": timing["bf16_kernel_ms"],
-        "bf16_plain_ms": timing["bf16_plain_ms"],
-    }
+
+    # The same operands' product alone by torch.matmul: a yardstick of
+    # scale, which the port never calls.
+    feats, gallery, _, _ = bench.large_gallery_assets(GALLERY_B, GALLERY_K, JAX_SHAPE_N,
+                                                      GALLERY_SEED, dev)
+    out = {"max_abs_err": errs[torch.float32], "bf16_max_abs_err": errs[torch.bfloat16]}
+    for name, dt, pre in (("f32", torch.float32, ""), ("bf16", torch.bfloat16, "bf16_")):
+        f, g = feats.to(dt), gallery.to(dt)
+        lib = bench.cuda_time_ms(lambda: torch.matmul(f, g.T), 10)
+        bnd = gallery_bound(GALLERY_B, GALLERY_K, JAX_SHAPE_N, dt)
+        ms = timing[f"{name}_kernel_ms"]
+        out.update({f"{pre}ms": ms, f"{pre}plain_ms": timing[f"{name}_plain_ms"],
+                    f"{pre}library_ms": lib, f"{pre}bound_ms": bnd["bound_ms"],
+                    f"{pre}share": bnd["bound_ms"] / ms})
+        if dt == torch.float32:
+            out["bound_by"] = bnd["bound_by"]
+        print(f"[gallery] N={JAX_SHAPE_N} {name}: kernel {ms:.4f} ms, torch.matmul {lib:.4f} "
+              f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), share "
+              f"{bnd['bound_ms'] / ms:.3f}")
+    return out
 
 
 def _best_time(fn, reps=3) -> float:
@@ -493,16 +597,22 @@ def phase_gallery_slice(dev, card: str) -> tuple:
         check(recon_err <= RECON_RTOL, f"{m}: reconstruction vs dense {recon_err}")
     check(torch.equal(trained["(1,1)"][0], trained["(1,8)"][0]), "train step: meshes agree")
 
-    # Kernel and plain at N = 1,048,573 on one shard, for information.
+    # Kernel, plain and torch.matmul of the same operands at N = 1,048,573
+    # on one shard, beside the card's bound.
     n1m = {}
     for dt, g in galleries.items():
         gn = torch.linalg.vector_norm(g, dim=1, dtype=torch.float32)
+        f = feats.to(dt)
         fns = (lambda: _gallery_match_plain(feats, g.T, gn, operand_dtype=dt),
-               lambda: gallery_match(feats, g.T, gn, operand_dtype=dt))
-        p1, k1, k2, p2 = (bench.cuda_time_ms(fns[i], 5, 2) for i in (0, 1, 1, 0))
-        n1m[str(dt)[6:]] = {"kernel_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+               lambda: gallery_match(feats, g.T, gn, operand_dtype=dt),
+               lambda: torch.matmul(f, g.T))
+        p1, k1, l1, l2, k2, p2 = (bench.cuda_time_ms(fns[i], 5, 2) for i in (0, 1, 2, 2, 1, 0))
+        bnd = gallery_bound(GALLERY_B, GALLERY_K, GALLERY_N, dt)
+        ms = (k1 + k2) / 2
+        n1m[str(dt)[6:]] = {"kernel_ms": ms, "plain_ms": (p1 + p2) / 2,
+                            "library_ms": (l1 + l2) / 2, **bnd, "share": bnd["bound_ms"] / ms}
     print(f"[slice2] N={GALLERY_N} B={GALLERY_B} k={GALLERY_K} CUDA-event ms per call "
-          f"(plain, kernel, kernel, plain): {json.dumps(n1m)}; card {card}")
+          f"(plain, kernel, matmul, matmul, kernel, plain): {json.dumps(n1m)}; card {card}")
 
     # Step time per path, for information: host clock, best of 3.
     times = {f"sharded {m} {str(dt)[6:]}": _best_time(lambda: match(m, dt))
@@ -518,16 +628,17 @@ def phase_gallery_slice(dev, card: str) -> tuple:
 def main() -> int:
     dev = phase_environment()
     card = torch.cuda.get_device_name(0)
-    phase_build()
+    hmma = phase_build()
     fused = phase_kernel_vs_plain(dev)
     fused_launches = phase_slice(dev, card)
     torch.cuda.empty_cache()
     gallery = phase_gallery_vs_plain(dev)
     torch.cuda.empty_cache()
-    gallery_launches, _ = phase_gallery_slice(dev, card)
+    gallery_launches, n1m = phase_gallery_slice(dev, card)
     print(json.dumps({"kernels": [
         {**KERNELS["fused_match"], "launches": fused_launches, **fused},
-        {**KERNELS["gallery_match"], "launches": gallery_launches, **gallery},
+        {**KERNELS["gallery_match"], "launches": gallery_launches, **gallery,
+         "n_1048573": n1m, "hmma": hmma},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

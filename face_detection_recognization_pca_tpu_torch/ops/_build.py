@@ -26,12 +26,13 @@ NVCC_FLAGS = (
 )
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
         raise RuntimeError("CUDA toolkit not found: set CUDA_HOME or put nvcc on PATH")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+    return os.path.join(CUDA_HOME, "bin", name)
 
 
 def library_path(name: str) -> Path:
@@ -56,7 +57,7 @@ def load(name: str) -> ctypes.CDLL:
         os.close(fd)
         try:
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, str(src)],
                 capture_output=True, text=True,
             )
             log_path.write_text(proc.stdout + proc.stderr)

@@ -73,6 +73,24 @@ def _gallery_rows(gallery_t: torch.Tensor) -> bool:
     )
 
 
+def _fill16(feats: torch.Tensor, gallery_t: torch.Tensor, rows: bool) -> bool:
+    """Whether the kernel may stage its tiles by 16-byte ``cp.async``:
+    both operands (already in the operand dtype) start on a 16-byte
+    boundary and every row is a whole number of 16 bytes, the ``k`` of
+    ``feats`` and of an ``(N, k)`` gallery (``rows``), or the ``N`` of a
+    contiguous ``(k, N)`` one.  Otherwise the kernel fills the same tiles
+    by element loads.  An offset view (``gallery[3:]``) is judged by its
+    own ``data_ptr()``."""
+    k, n = gallery_t.shape
+    size = gallery_t.element_size()
+    return (
+        feats.data_ptr() % 16 == 0
+        and gallery_t.data_ptr() % 16 == 0
+        and k * size % 16 == 0
+        and (rows or n * size % 16 == 0)
+    )
+
+
 def _check_args(feats, gallery_t, gallery_norm, operand_dtype) -> None:
     named = {"feats": feats, "gallery_t": gallery_t, "gallery_norm": gallery_norm}
     for name, t in named.items():
@@ -103,17 +121,22 @@ def _check_args(feats, gallery_t, gallery_norm, operand_dtype) -> None:
     _gallery_rows(gallery_t)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("gallery_match")
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a library built from
+    ``csrc/gallery_match.cu``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gallery_match_launch.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+    lib.gallery_match_launch.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
     lib.gallery_match_launch.restype = i32
     lib.gallery_match_scratch_tiles.argtypes = [i32]
     lib.gallery_match_scratch_tiles.restype = i32
     lib.gallery_match_error_string.argtypes = [i32]
     lib.gallery_match_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return _declare(_build.load("gallery_match"))
 
 
 def gallery_match(
@@ -159,7 +182,7 @@ def gallery_match(
             feats_op.data_ptr(), frinv.data_ptr(), gallery_op.data_ptr(),
             gallery_norm.data_ptr(), part_best.data_ptr(), part_idx.data_ptr(),
             idx.data_ptr(), best.data_ptr(), b, k, n, int(dt == torch.bfloat16), int(rows),
-            torch.cuda.current_stream(device).cuda_stream,
+            int(_fill16(feats_op, gallery_op, rows)), torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(

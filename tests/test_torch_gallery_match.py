@@ -188,3 +188,97 @@ def test_gallery_match_counts_no_launch_on_cpu():
     want = tgm._gallery_match_plain(**args)
     assert tgm.gallery_match.launches == before
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _view(layout, k, n, dtype, offset):
+    """A gallery_t of (k, N) whose first element sits ``offset`` elements
+    into a fresh buffer: for "rows" the ``.T`` of ``gallery[offset:]`` (a
+    shard that starts at row ``offset``, ``offset * k`` elements in), for
+    "k_n" a contiguous (k, N) cut from a flat buffer.  Returns the view
+    and its element offset."""
+    if layout == "rows":
+        gallery = torch.zeros(n + offset, k, dtype=dtype)
+        return gallery[offset:].T, offset * k
+    buf = torch.zeros(offset + k * n, dtype=dtype)
+    return buf[offset:].view(k, n), offset
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("layout", ["rows", "k_n"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [7, 8, 100, 128])
+def test_fill16_takes_cp_async_only_where_every_row_is_16_byte_aligned(k, dtype, layout, offset):
+    """The kernel may stage by 16-byte cp.async only when both operands
+    start on 16 bytes and every row is a whole number of 16 bytes (the
+    k of the features and of (N, k) rows, the N of a (k, N) gallery);
+    ``sharded_gallery_match``'s ``gallery[start:stop].T`` is judged by its
+    own base pointer."""
+    n = 40
+    gallery_t, elems = _view(layout, k, n, dtype, offset)
+    feats = torch.zeros(3, k, dtype=dtype)
+    assert tgm._gallery_rows(gallery_t) == (layout == "rows")
+    size = torch.finfo(dtype).bits // 8
+    assert feats.data_ptr() % 16 == 0 and (gallery_t.data_ptr() - elems * size) % 16 == 0
+    want = (elems * size % 16 == 0 and k * size % 16 == 0
+            and (layout == "rows" or n * size % 16 == 0))
+    assert tgm._fill16(feats, gallery_t, layout == "rows") == want
+    if offset == 3 and k == 128:  # a k = 128 shard at any row keeps cp.async
+        assert want == (layout == "rows")
+
+
+def test_fill16_judges_the_features_base_pointer_too():
+    feats = torch.zeros(5, 128)
+    gallery_t = torch.zeros(64, 128).T
+    assert tgm._fill16(feats, gallery_t, True)
+    assert not tgm._fill16(torch.zeros(5 * 128 + 1)[1:].view(5, 128), gallery_t, True)
+
+
+def _rna_tf32(x: np.ndarray) -> np.ndarray:
+    """float32 to TF32 (10 explicit mantissa bits), rounded to nearest with
+    ties away from zero as ``cvt.rna.tf32.f32`` rounds, the 13 low bits
+    zero: a carry out of them rounds the magnitude up."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _dots_tf32(feats: np.ndarray, gallery: np.ndarray, passes: int) -> np.ndarray:
+    """feats @ gallery.T as the kernel's tensor cores take it, in float32:
+    k in steps of 8 (one m16n8k8), each operand split into hi =
+    rna_tf32(x) and lo = rna_tf32(x - hi).  ``passes`` 3 is 3xTF32 (lo*hi
+    and hi*lo before hi*hi in the same accumulators); 1 is plain TF32."""
+    acc = np.zeros((feats.shape[0], gallery.shape[0]), np.float32)
+    for k0 in range(0, feats.shape[1], 8):
+        a, b = feats[:, k0:k0 + 8], gallery[:, k0:k0 + 8]
+        ah, bh = _rna_tf32(a), _rna_tf32(b)
+        al, bl = _rna_tf32(a - ah), _rna_tf32(b - bh)
+        terms = [(al, bh), (ah, bl), (ah, bh)] if passes == 3 else [(ah, bh)]
+        for x, y in terms:
+            acc += x @ y.T  # products of two TF32 values are exact in float32
+    return acc
+
+
+def test_3xtf32_keeps_float32_parity_where_tf32_does_not():
+    """The float32 path of the kernel, emulated: on large-gallery data
+    (B 64, k 128, N 4096) its cosines lie within 1e-6 of float64 and its
+    ids equal the Pallas kernel's; one TF32 pass misses by far more."""
+    from face_detection_recognization_pca_tpu_torch import bench
+
+    feats_t, gallery_t, _, planted = bench.large_gallery_assets(64, 128, 4096, 3,
+                                                                torch.device("cpu"))
+    feats, gallery = feats_t.numpy(), gallery_t.numpy()
+    gnorm = np.linalg.norm(gallery, axis=1).astype(np.float32)
+    frinv = (1.0 / np.linalg.norm(feats, axis=1)).astype(np.float32)
+    grinv = (1.0 / gnorm).astype(np.float32)
+    exact = (feats.astype(np.float64) @ gallery.T.astype(np.float64)
+             / np.linalg.norm(feats.astype(np.float64), axis=1)[:, None]
+             / np.linalg.norm(gallery.astype(np.float64), axis=1)[None, :])
+
+    cos3 = _dots_tf32(feats, gallery, 3) * frinv[:, None] * grinv[None, :]
+    assert np.abs(cos3 - exact).max() <= 1e-6
+    cos1 = _dots_tf32(feats, gallery, 1) * frinv[:, None] * grinv[None, :]
+    assert np.abs(cos1 - exact).max() > 1e-5
+
+    ids, best = _jax(feats, gallery, gnorm, tile_b=64, tile_n=512)
+    np.testing.assert_array_equal(np.argmax(cos3, axis=1), ids)
+    np.testing.assert_array_equal(ids, planted)
+    np.testing.assert_allclose(cos3.max(axis=1), best, rtol=0, atol=1e-6)

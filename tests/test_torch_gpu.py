@@ -184,3 +184,75 @@ def test_sharded_gallery_match_runs_the_kernel_once_per_shard(cuda_device):
         ids, conf = sharded_gallery_match(mesh, feats, gallery.to(dtype), labels)
         assert tgm.gallery_match.launches == before + 4
         assert torch.equal(ids, want) and float(conf.min()) > 0.99
+
+
+def _as_layout(gallery, layout):
+    """``gallery`` (N, k) as the kernel's ``gallery_t``: the ``.T`` view of
+    its rows, or a contiguous (k, N)."""
+    return gallery.T if layout == "rows" else gallery.T.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["rows", "k_n"])
+def test_gallery_kernel_tie_across_tiles_in_each_dtype_on_card(cuda_device, dtype, layout):
+    """gallery[5] = 2 f and gallery[900] = 4 f score the same cosine bit for
+    bit: scaling by a power of two commutes with the bf16 rounding, the
+    TF32 split and every fp32 sum.  The first row wins, in tile 0 of 8."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    b, k, n = 4, 64, 1000
+    feats = torch.randn(b, k, generator=g, device=cuda_device)
+    gallery = torch.randn(n, k, generator=g, device=cuda_device)
+    gallery[900] = feats[0] * 4.0
+    gallery[5] = feats[0] * 2.0
+    gallery[77] = gallery[333] = feats[1]  # an exact duplicate in tiles 0 and 2
+    gallery = gallery.to(dtype)
+    gnorm = torch.linalg.vector_norm(gallery, dim=1, dtype=torch.float32)
+    idx, best = tgm.gallery_match(feats, _as_layout(gallery, layout), gnorm, operand_dtype=dtype)
+    torch.cuda.synchronize()
+    assert int(idx[0]) == 5 and int(idx[1]) == 77
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gallery_kernel_on_a_row_offset_shard_on_card(cuda_device, dtype):
+    """k = 128 on ``gallery[3:]``, the view of a shard that does not start
+    at row 0: its rows stay 16-byte aligned, so the cp.async fill runs."""
+    feats, gallery, gnorm = _gallery(cuda_device, 64, 128, 4099, seed=11)
+    shard, gn = gallery.to(dtype)[3:], gnorm[3:]
+    assert tgm._fill16(feats.to(dtype), shard.T, rows=True)
+    idx_k, best_k = tgm.gallery_match(feats, shard.T, gn, operand_dtype=dtype)
+    idx_p, best_p = tgm._gallery_match_plain(feats, shard.T, gn, operand_dtype=dtype)
+    torch.cuda.synchronize()
+    atol = CONF_ATOL if dtype == torch.float32 else CONF_ATOL_BF16
+    assert torch.equal(idx_k, idx_p)
+    assert float((best_k - best_p).abs().max()) <= atol
+    planted = torch.arange(1, 64, device=cuda_device) * (4099 // 64) - 3
+    assert torch.equal(idx_k[1:].long(), planted)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["rows", "k_n"])
+def test_gallery_kernel_element_fill_equals_16_byte_fill_on_card(cuda_device, dtype, layout):
+    """k = 128, N = 4096 with the gallery at a base pointer one element
+    past a 16-byte boundary: the kernel fills its tiles by element loads,
+    and the tensor-core loop gives the same answer bit for bit as from
+    the aligned copy, which takes cp.async."""
+    feats, gallery, gnorm = _gallery(cuda_device, 70, 128, 4096, seed=12)
+    aligned = _as_layout(gallery.to(dtype), layout)
+    buf = torch.empty(aligned.numel() + 1, dtype=dtype, device=cuda_device)
+    shifted = buf[1:].view(aligned.T.shape if layout == "rows" else aligned.shape)
+    shifted = shifted.T if layout == "rows" else shifted
+    shifted.copy_(aligned)
+    rows = layout == "rows"
+    feats_op = feats.to(dtype)
+    assert tgm._fill16(feats_op, aligned, rows) and not tgm._fill16(feats_op, shifted, rows)
+    idx_a, best_a = tgm.gallery_match(feats, aligned, gnorm, operand_dtype=dtype)
+    idx_s, best_s = tgm.gallery_match(feats, shifted, gnorm, operand_dtype=dtype)
+    idx_p, best_p = tgm._gallery_match_plain(feats, aligned, gnorm, operand_dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(idx_a, idx_s) and torch.equal(best_a, best_s)
+    atol = CONF_ATOL if dtype == torch.float32 else CONF_ATOL_BF16
+    assert torch.equal(idx_a, idx_p)
+    assert float((best_a - best_p).abs().max()) <= atol
