@@ -7,16 +7,23 @@ Phases, each printing a line:
 
 1. environment: torch and CUDA versions, the card's name and power limit
    (``nvidia-smi``), both TF32 switches turned off and checked;
-2. build: ``csrc/fused_match.cu`` and ``csrc/gallery_match.cu`` compiled
-   with nvcc for sm_90a, both at once, with ptxas's register and spill
-   counts per kernel, and the number of ``HMMA`` (tensor-core)
-   instructions in each kernel of the gallery library from ``cuobjdump
-   --dump-sass``: every instantiation of the tile kernel must have some;
+2. build: ``csrc/fused_match.cu`` and ``csrc/gallery_match.cu`` (both
+   including ``csrc/mma_sync.cuh``) compiled with nvcc for sm_90a, both
+   at once, with ptxas's register and spill counts per kernel, and the
+   number of ``HMMA`` (tensor-core) instructions in each kernel of both
+   libraries from ``cuobjdump --dump-sass``: every instantiation of the
+   gallery tile kernel and of the fused-match kernel must have some;
 3. fused kernel against plain: ``fused_match`` against
    ``recognize_linearized`` on the card at the tracker's shapes, a ragged
-   masked case, an exact tie, a zero-norm crop and k = 300 (ids equal,
-   conf within 1e-5); both timed with CUDA events beside ``crops @ m``
-   (``library_ms``) and the card's bound for the same work;
+   masked case, an exact tie, a zero-norm crop, k = 300, B = 130 (three
+   64-crop tiles) and k = 7 (rows off 16-byte boundaries, element loads):
+   ids equal, conf within 1e-5; then two calls and a CUDA graph's replays
+   must give the same bits.  Kernel, plain and ``crops @ m``
+   (``library_ms``) are timed in the order plain, kernel, library,
+   library, kernel, plain, by CUDA events around 200 Python calls and
+   around replays of a CUDA graph of 50 calls (the card alone, the
+   ``ms`` of the JSON line), with ``torch.profiler``'s kernel sums as a
+   cross-check, beside the card's bound for the same work;
 4. the tracker slice: ``tracker_assets`` at 1080p with 64 streams and 8
    frame batches (seed 4), a snapshot-PCA model trained on the card, then
    8 ``process_batch`` steps and one 8-frame ``process_window``; every
@@ -42,11 +49,14 @@ Phases, each printing a line:
    ``snapshot_pca``.
 
 The line before the last is a JSON object describing each kernel, with
-its time, its plain version's, ``library_ms``, and ``bound_ms``: the
-larger of the bytes it must move over 3.35 TB/s and its operations over
-the published dense peak of their type (fp32 67, TF32 495, bf16 989
-TFLOP/s; float32 gallery products count as three TF32 products, the
-3xTF32 the kernel runs).  The last line is ``{"ok": true, "device":
+its time, its plain version's, ``library_ms``, its HMMA counts and
+``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and
+its operations over the published dense peak of their type (fp32 67,
+TF32 495, bf16 989 TFLOP/s; float32 products count as three TF32
+products, the 3xTF32 both kernels run).  For the fused kernel ``ms``,
+``plain_ms`` and ``library_device_ms`` are device-only (CUDA graph)
+times, and ``event_loop_ms``, ``plain_event_loop_ms`` and ``library_ms``
+the event-loop ones.  The last line is ``{"ok": true, "device":
 {...}}``.  Any failed check raises,
 so the script exits nonzero without that line, as it does when PyTorch
 sees no CUDA device.
@@ -70,6 +80,7 @@ from face_detection_recognization_pca_tpu_torch.models.eigenfaces import recogni
 from face_detection_recognization_pca_tpu_torch.ops import _build
 from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
     LinearizedModel,
+    _fill16,
     fused_match,
     recognize_linearized,
 )
@@ -168,6 +179,9 @@ def _kernel_label(mangled: str) -> str:
     if m:
         return (f"tiles<{'f32' if m[1] == 'f' else 'bf16'},{'rows' if m[2] == '1' else 'k_n'},"
                 f"{'cp.async' if m[3] == '1' else 'elements'}>")
+    m = re.search(r"fused_match_kernelILb([01])E", mangled)
+    if m:
+        return f"fused<{'cp.async' if m[1] == '1' else 'elements'}>"
     # _Z<len><name>, or _ZN<len><namespace><len><name> for a kernel in an
     # anonymous namespace.
     m = re.match(r"_ZN(\d+)", mangled)
@@ -204,23 +218,28 @@ def _hmma_counts(lib_path) -> tuple:
 
 
 def phase_build() -> dict:
+    """kernel name -> {kernel: HMMA count} of each library, checked."""
     # One nvcc per source, all started together.
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         list(pool.map(_build.load, KERNELS))
     seconds = time.perf_counter() - t0
+    hmma = {}
     for name in KERNELS:
-        log = _build.library_path(name).with_suffix(".log").read_text()
-        ptxas = "; ".join(f"{k} {v}" for k, v in _ptxas_counts(log).items())
+        lib = _build.library_path(name)
+        ptxas = "; ".join(f"{k} {v}" for k, v in
+                          _ptxas_counts(lib.with_suffix(".log").read_text()).items())
         print(f"[build] {name}.cu (both in {seconds:.2f} s); ptxas: {ptxas}")
-    lib = _build.library_path("gallery_match")
-    cmd, hmma = _hmma_counts(lib)
-    cmd[0], cmd[-1] = "cuobjdump", str(lib.relative_to(lib.parents[2]))
-    print(f"[build] {' '.join(cmd)}: HMMA instructions per kernel {json.dumps(hmma)}")
-    tiles = {k: v for k, v in hmma.items() if k.startswith("tiles<")}
+        cmd, hmma[name] = _hmma_counts(lib)
+        cmd[0], cmd[-1] = "cuobjdump", str(lib.relative_to(lib.parents[2]))
+        print(f"[build] {' '.join(cmd)}: HMMA instructions per kernel {json.dumps(hmma[name])}")
+    tiles = {k: v for k, v in hmma["gallery_match"].items() if k.startswith("tiles<")}
     check(len(tiles) == 8 and all(tiles.values()),
           f"every gallery tile kernel runs on the tensor cores: {tiles}")
-    return tiles
+    fused = hmma["fused_match"]
+    check(len(fused) == 2 and all(fused.values()),
+          f"every fused_match kernel runs on the tensor cores: {fused}")
+    return {"gallery_match": tiles, "fused_match": fused}
 
 
 def _match_case(dev, gen, b, d, k, n, near, masked=0, tie=None, zero_row=None):
@@ -250,6 +269,14 @@ def _match_case(dev, gen, b, d, k, n, near, masked=0, tie=None, zero_row=None):
     return crops.contiguous(), m, bias, gallery_t, gnorm, mask
 
 
+def fused_bound(b: int, d: int, k: int, n: int) -> dict:
+    """fused_match at (B, D, k, N): crops, m, bias, gallery_t, gnorm read
+    once, ids and conf written once; 2 b d k + 2 b k n products, as three
+    TF32 products each (the 3xTF32 the kernel runs)."""
+    nbytes = 4 * (b * d + d * k + k + k * n + n + 2 * b)
+    return bound(nbytes, 3 * (2.0 * b * d * k + 2.0 * b * k * n), "tf32")
+
+
 def phase_kernel_vs_plain(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -260,7 +287,11 @@ def phase_kernel_vs_plain(dev) -> dict:
         "tie": _match_case(dev, gen, 4, 576, 16, 40, near=[3, 3, 9, 20], tie=(3, 7)),
         "zero_norm": _match_case(dev, gen, 3, 576, 16, 40, near=[1, 2, 3], zero_row=1),
         "k300": _match_case(dev, gen, 16, 4096, 300, 512, near=list(range(0, 512, 32))),
+        "b130": _match_case(dev, gen, 130, 96 * 96, 64, 256, near=[i % 256 for i in range(130)]),
+        "k7": _match_case(dev, gen, 9, 2048, 7, 60, near=list(range(0, 60, 7))),
     }
+    check(not _fill16(*cases["k7"][:2], cases["k7"][3]), "k = 7 takes the element fill")
+    check(_fill16(*cases["slice"][:2], cases["slice"][3]), "the slice takes the cp.async fill")
     max_err = 0.0
     for name, (crops, m, bias, gallery_t, gnorm, mask) in cases.items():
         n = gallery_t.shape[1]
@@ -271,7 +302,8 @@ def phase_kernel_vs_plain(dev) -> dict:
         torch.cuda.synchronize()
         err = float((conf_k - conf_p).abs().max())
         max_err = max(max_err, err)
-        print(f"[kernel] {name}: ids {ids_k.tolist()[:8]} max|dconf| {err:.3g}")
+        print(f"[kernel] {name}: B={crops.shape[0]} D={crops.shape[1]} k={m.shape[1]} N={n}: "
+              f"ids {ids_k.tolist()[:8]} max|dconf| {err:.3g}")
         check(torch.equal(ids_k, ids_p), f"{name}: ids {ids_k.tolist()} vs {ids_p.tolist()}")
         check(err <= CONF_ATOL, f"{name}: conf error {err} > {CONF_ATOL}")
     check(int(fused_match(*cases["tie"])[0][0]) == 3, "tie goes to the first column")
@@ -281,32 +313,60 @@ def phase_kernel_vs_plain(dev) -> dict:
     check(bool((masked_ids < 30).all()), "masked rows never win")
     k300_ids = fused_match(*cases["k300"])[0]
     check(k300_ids.tolist() == list(range(0, 512, 32)), "k = 300 finds every near row")
+    check(fused_match(*cases["b130"])[0].tolist() == [i % 256 for i in range(130)],
+          "B = 130 finds every near row")
 
+    # The split sums run in a fixed order: two calls give the same bits,
+    # and so does a CUDA graph's replay (the counters start from 0 again).
     crops, m, bias, gallery_t, gnorm, _ = cases["slice"]
+    first, second = fused_match(crops, m, bias, gallery_t, gnorm), fused_match(
+        crops, m, bias, gallery_t, gnorm)
+    check(all(torch.equal(a, b) for a, b in zip(first, second)), "a repeat gives the same bits")
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_match(crops, m, bias, gallery_t, gnorm)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        replayed = fused_match(crops, m, bias, gallery_t, gnorm)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(first, replayed)),
+              "a CUDA-graph replay equals the eager call")
+    print("[kernel] slice: two calls and three CUDA-graph replays give the same bits")
+
     lin = LinearizedModel(m, bias, gallery_t, gnorm,
                           torch.zeros(gallery_t.shape[1], dtype=torch.int32, device=dev),
                           (96, 96))
-
-    def plain():
-        return recognize_linearized(lin, crops)
-
-    def kernel():
-        return fused_match(crops, m, bias, gallery_t, gnorm)
-
-    def library():  # the projection alone, a yardstick the port never calls
-        return crops @ m
-
-    # Alternate plain, kernel, library, library, kernel, plain in one call.
-    p1, k1, l1, l2, k2, p2 = (bench.cuda_time_ms(fn, 200, 10)
-                              for fn in (plain, kernel, library, library, kernel, plain))
+    fns = {
+        "plain": lambda: recognize_linearized(lin, crops),
+        "kernel": lambda: fused_match(crops, m, bias, gallery_t, gnorm),
+        # The projection alone, a yardstick the port never calls.
+        "library": lambda: crops @ m,
+    }
+    # CUDA events around 200 Python calls (host and card), then around
+    # replays of a CUDA graph of 50 calls (the card alone), each taken in
+    # the order plain, kernel, library, library, kernel, plain.
+    turns = bench.time_in_turns(fns, ("plain", "kernel", "library", "library", "kernel", "plain"))
+    loop, dev_only = turns["loop"], turns["device"]
+    prof = {name: bench.profiler_ms(fn, 50) for name, fn in fns.items()}
     (b, d), (k, n) = crops.shape, gallery_t.shape
-    nbytes = 4 * (b * d + d * k + k + k * n + n + 2 * b)
-    timing = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
-              **bound(nbytes, 2.0 * b * d * k + 2.0 * b * k * n, "fp32"), "bf16_bound_ms": None}
-    print(f"[kernel] slice shape B=64 D=9216 k=64 N=256: kernel {k1:.4f}/{k2:.4f} ms, "
-          f"plain {p1:.4f}/{p2:.4f} ms, crops @ m {l1:.4f}/{l2:.4f} ms; bound "
-          f"{timing['bound_ms']:.5f} ms ({timing['bound_by']}), share "
-          f"{timing['bound_ms'] / timing['ms']:.3f}")
+    bnd = fused_bound(b, d, k, n)
+    mean = {clock: {name: sum(v) / len(v) for name, v in t.items()} for clock, t in turns.items()}
+    timing = {"ms": mean["device"]["kernel"], "event_loop_ms": mean["loop"]["kernel"],
+              "plain_ms": mean["device"]["plain"], "plain_event_loop_ms": mean["loop"]["plain"],
+              "library_ms": mean["loop"]["library"],
+              "library_device_ms": mean["device"]["library"], "profiler_ms": prof, **bnd,
+              "share": bnd["bound_ms"] / mean["device"]["kernel"], "bf16_bound_ms": None}
+    fmt = lambda v: "/".join(f"{x:.5f}" for x in v)  # noqa: E731
+    print(f"[kernel] slice shape B={b} D={d} k={k} N={n}, ms per call: event loop kernel "
+          f"{fmt(loop['kernel'])}, plain {fmt(loop['plain'])}, crops @ m {fmt(loop['library'])}; "
+          f"device-only (CUDA graph of 50) kernel {fmt(dev_only['kernel'])}, plain "
+          f"{fmt(dev_only['plain'])}, crops @ m {fmt(dev_only['library'])}; torch.profiler "
+          f"kernel sums {json.dumps(prof)}; bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), "
+          f"share {timing['share']:.3f}")
     return {"max_abs_err": max_err, **timing}
 
 
@@ -636,9 +696,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     gallery_launches, n1m = phase_gallery_slice(dev, card)
     print(json.dumps({"kernels": [
-        {**KERNELS["fused_match"], "launches": fused_launches, **fused},
+        {**KERNELS["fused_match"], "launches": fused_launches, **fused,
+         "hmma": hmma["fused_match"]},
         {**KERNELS["gallery_match"], "launches": gallery_launches, **gallery,
-         "n_1048573": n1m, "hmma": hmma},
+         "n_1048573": n1m, "hmma": hmma["gallery_match"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

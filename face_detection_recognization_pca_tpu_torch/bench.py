@@ -155,6 +155,77 @@ def cuda_time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> 
     return start.elapsed_time(end) / iters
 
 
+def cuda_graph_ms(fn: Callable[[], object], calls: int = 50, replays: int = 5,
+                  warmup: int = 3) -> float:
+    """Device-only ms per call of ``fn``: ``calls`` calls captured in one
+    CUDA graph (after ``warmup`` calls on the capturing side stream),
+    replayed ``replays`` times between CUDA events.  The host's Python
+    and launch costs, which :func:`cuda_time_ms` also counts, are left
+    out; the gaps between the graph's kernels stay in."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def time_in_turns(fns: Mapping[str, Callable[[], object]], order: Sequence[str],
+                  loop_iters: int = 200, graph_calls: int = 50) -> Dict[str, Dict[str, list]]:
+    """ms per call of each of ``fns``, taken in ``order`` (a name may
+    repeat, as in plain, kernel, library, library, kernel, plain): first
+    :func:`cuda_time_ms` over ``loop_iters`` calls (``"loop"``: host and
+    card), then :func:`cuda_graph_ms` over ``graph_calls`` (``"device"``:
+    the card alone).  Returns {"loop" | "device": {name: [ms, ...]}}."""
+    out = {"loop": {name: [] for name in fns}, "device": {name: [] for name in fns}}
+    for name in order:
+        out["loop"][name].append(cuda_time_ms(fns[name], loop_iters, 10))
+    for name in order:
+        out["device"][name].append(cuda_graph_ms(fns[name], graph_calls))
+    return out
+
+
+def device_kernels(prof) -> list:
+    """(name, device us summed, calls) of every GPU kernel in a
+    ``torch.profiler`` trace, the longest first."""
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        rows.append((evt.key, us, evt.count))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def profiler_ms(fn: Callable[[], object], calls: int = 50) -> Union[float, None]:
+    """Kernel time per call of ``fn`` summed by ``torch.profiler`` over
+    ``calls`` eager calls, or None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(us for _, us, _ in device_kernels(prof))
+    return total_us / calls / 1e3 if total_us > 0 else None
+
+
 def large_gallery(
     b: int = 1024, k: int = 128, n: int = 131072, iters: int = 10, seed: int = 9,
     device: torch.device = torch.device("cuda"),

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the
-checkout, keyed by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  Nothing is
-compiled when a module is imported.
+checkout, keyed by a hash of the source, of every header in ``csrc/``
+(``*.cuh``, which the sources include) and of the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+Nothing is compiled when a module is imported.
 """
 
 from __future__ import annotations
@@ -38,9 +39,19 @@ def cuda_tool(name: str) -> str:
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to; nvcc's output (with ptxas's
     register and spill counts) goes beside it with suffix ``.log``."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def nvcc(src: Path, out: Path) -> subprocess.CompletedProcess:
+    """Compile ``src`` (which may include the headers of ``csrc/``) into
+    the shared library ``out``; nvcc's output is captured, not checked."""
+    return subprocess.run(
+        [cuda_tool("nvcc"), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)],
+        capture_output=True, text=True,
+    )
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,10 +67,7 @@ def load(name: str) -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run(
-                [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, str(src)],
-                capture_output=True, text=True,
-            )
+            proc = nvcc(src, Path(tmp))
             log_path.write_text(proc.stdout + proc.stderr)
             if proc.returncode != 0:
                 raise RuntimeError(

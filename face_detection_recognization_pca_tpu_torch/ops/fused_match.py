@@ -7,17 +7,28 @@ them once per (model, crop shape) into ``feats = crop_flat @ M + bias``
 
 :func:`fused_match` then runs ``crops_flat @ M + bias``, the L2 norm,
 the gallery cosine, an optional additive mask and the first-occurrence
-argmax as one CUDA kernel (``csrc/fused_match.cu``, the port of the
-Pallas ``_match_kernel``).  :func:`recognize_linearized` is the same math
-in plain PyTorch: :func:`fused_match` uses it for tensors on the CPU, and
-tests compare the kernel with it on the card.
+argmax as one CUDA kernel launch (``csrc/fused_match.cu``, the port of
+the Pallas ``_match_kernel``, on the tensor cores as 3xTF32).
+:func:`recognize_linearized` is the same math in plain PyTorch:
+:func:`fused_match` uses it for tensors on the CPU, and tests compare the
+kernel with it on the card.
+
+**Scratch and streams.**  The kernel's clusters of blocks write partial
+products to a scratch buffer, and the last cluster of each 64-crop tile
+(found by a counter that the kernel returns to 0) finishes the tile.  The wrapper
+keeps one scratch buffer and one set of counters per (device, stream)
+and reuses them on every call on that stream, so calls on one stream,
+which run in order, share them safely; calls on two streams at once
+each have their own.  A call captured in a CUDA graph uses its stream's
+buffers on every replay, and they are never freed, so a later call with
+larger shapes cannot take that memory away.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,9 +36,16 @@ import torch
 from face_detection_recognization_pca_tpu_torch.ops import _build
 from face_detection_recognization_pca_tpu_torch.ops.resize import _interp_matrix
 
-# Rows of M per projection block in the kernel's first phase: 128 gives
-# 72 splits at D = 9216, enough blocks to hide latency (csrc/fused_match.cu).
-_D_SPLIT = 128
+# The kernel's blocking (csrc/fused_match.cu): rows of D per block,
+# crops and features per block, and blocks per cluster.  96 gives 96
+# blocks in 12 clusters at the tracker's D = 9216, all resident at once
+# (64 makes 18 clusters, which take two waves; scripts_torch/fused_sweep.py).
+_D_SPLIT = 96
+_TILE_B, _TILE_K, _CLUSTER = 64, 64, 8
+# (device index, stream) -> (partial scratch, counters); see the docstring.
+_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+# Workspaces that a CUDA graph captured, kept alive for its replays.
+_CAPTURED: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 class LinearizedModel(NamedTuple):
@@ -140,15 +158,60 @@ def _check_args(crops_flat, m, bias, gallery_t, gnorm, mask):
             raise ValueError(f"{name} has shape {tuple(named[name].shape)}, expected {shape}")
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_match")
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a library built from
+    ``csrc/fused_match.cu``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_match_launch.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
+    lib.fused_match_launch.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
     lib.fused_match_launch.restype = i32
+    lib.fused_match_counters.argtypes = [i32]
+    lib.fused_match_counters.restype = i32
+    lib.fused_match_scratch_floats.argtypes = [i32] * 4
+    lib.fused_match_scratch_floats.restype = ctypes.c_longlong
     lib.fused_match_error_string.argtypes = [i32]
     lib.fused_match_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return _declare(_build.load("fused_match"))
+
+
+def _fill16(crops_flat: torch.Tensor, m: torch.Tensor, gallery_t: torch.Tensor) -> bool:
+    """Whether the kernel may stage its tiles by 16-byte ``cp.async``: each
+    of the three streamed operands starts on a 16-byte boundary and its
+    rows (D, k and N float32) are whole numbers of 16 bytes (the scratch,
+    which the kernel also streams, is a fresh allocation).  Otherwise the
+    kernel fills the same tiles by element loads."""
+    return all(t.data_ptr() % 16 == 0 and t.shape[1] % 4 == 0 for t in (crops_flat, m, gallery_t))
+
+
+def _grid(b: int, d: int, k: int) -> Tuple[int, int, int]:
+    """The kernel's grid: (D splits rounded up to whole clusters, k chunks,
+    B tiles); there is one counter per B tile."""
+    splits = -(-d // _D_SPLIT)
+    return -(-splits // _CLUSTER) * _CLUSTER, -(-k // _TILE_K), -(-b // _TILE_B)
+
+
+def _scratch_shape(b: int, d: int, k: int) -> Tuple[int, int, int]:
+    """The kernel's partial scratch: (clusters, B, k) float32."""
+    return _grid(b, d, k)[0] // _CLUSTER, b, k
+
+
+def _workspace(device: torch.device, stream: int, floats: int, counters: int):
+    """This stream's scratch of at least ``floats`` float32 and
+    ``counters`` zeroed int32 counters, grown (never shrunk) on demand."""
+    key = (device.index, stream)
+    partial, count = _WORKSPACE.get(key, (None, None))
+    if partial is None or partial.numel() < floats:
+        partial = torch.empty(floats, dtype=torch.float32, device=device)
+    if count is None or count.numel() < counters:
+        count = torch.zeros(counters, dtype=torch.int32, device=device)
+    _WORKSPACE[key] = partial, count
+    if torch.cuda.is_current_stream_capturing():
+        _CAPTURED[id(partial), id(count)] = partial, count
+    return partial, count
 
 
 def fused_match(
@@ -163,9 +226,9 @@ def fused_match(
     conf float32 (B,))``.
 
     Every operand is float32, contiguous and on one device.  On a CUDA
-    device this launches ``csrc/fused_match.cu`` on the current stream
-    (building it at first use) and raises if the build or the launch
-    fails; on the CPU it computes the same thing in plain PyTorch.
+    device this launches ``csrc/fused_match.cu`` once on the current
+    stream (building it at first use) and raises if the build or the
+    launch fails; on the CPU it computes the same thing in plain PyTorch.
     ``fused_match.launches`` counts kernel launches.
     """
     _check_args(crops_flat, m, bias, gallery_t, gnorm, mask)
@@ -178,17 +241,18 @@ def fused_match(
     lib = _lib()
     b, d = crops_flat.shape
     k, n = gallery_t.shape
-    n_split = -(-d // _D_SPLIT)
-    partial = torch.empty((n_split, b, k), dtype=torch.float32, device=device)
-    ids = torch.empty((b,), dtype=torch.int32, device=device)
-    conf = torch.empty((b,), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        clusters, _, _ = _scratch_shape(b, d, k)
+        partial, counters = _workspace(device, stream, clusters * b * k, _grid(b, d, k)[2])
+        out = torch.empty((2 * b,), dtype=torch.int32, device=device)
+        ids, conf = out[:b], out[b:].view(torch.float32)
         err = lib.fused_match_launch(
             crops_flat.data_ptr(), m.data_ptr(), bias.data_ptr(),
             gallery_t.data_ptr(), gnorm.data_ptr(),
             None if mask is None else mask.data_ptr(),
-            partial.data_ptr(), ids.data_ptr(), conf.data_ptr(),
-            b, d, k, n, _D_SPLIT, torch.cuda.current_stream(device).cuda_stream,
+            partial.data_ptr(), counters.data_ptr(), ids.data_ptr(), conf.data_ptr(),
+            b, d, k, n, _D_SPLIT, int(_fill16(crops_flat, m, gallery_t)), stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -96,10 +96,7 @@ def build_variant(name: str) -> tuple:
     out.mkdir(parents=True, exist_ok=True)
     (out / f"{slug}.cu").write_text(src)
     lib = out / f"lib{slug}.so"
-    proc = subprocess.run(
-        [_build.cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-o", str(lib), str(out / f"{slug}.cu")],
-        capture_output=True, text=True,
-    )
+    proc = _build.nvcc(out / f"{slug}.cu", lib)
     if proc.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
     regs = re.findall(r"Used (\d+) registers", proc.stdout + proc.stderr)
@@ -151,19 +148,6 @@ def sweep(dev, smi: str) -> None:
               + f"; card {smi}")
 
 
-def _device_kernels(prof) -> list:
-    """(name, device us summed, calls) of every GPU kernel in the trace."""
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        rows.append((evt.key, us, evt.count))
-    return sorted(rows, key=lambda r: -r[1])
-
-
 def profile(dev, smi: str) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -190,7 +174,7 @@ def profile(dev, smi: str) -> None:
                 for _ in range(calls):
                     run()
                 torch.cuda.synchronize()
-            rows = _device_kernels(prof)
+            rows = bench.device_kernels(prof)
             total = sum(r[1] for r in rows) / calls / 1e3
             print(f"[profile] sharded_gallery_match {mname} {str(dt)[6:]} N={SHAPES[-1]}: "
                   f"device {total:.4f} ms per call, host wall {[round(w, 3) for w in wall]} ms "
@@ -206,11 +190,7 @@ def probe(dev, smi: str) -> None:
     out_dir = REPO / "build" / "sweep"
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / "libhmma_probe.so"
-    proc = subprocess.run(
-        [_build.cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-o", str(lib_path),
-         str(REPO / "scripts_torch" / "hmma_probe.cu")],
-        capture_output=True, text=True,
-    )
+    proc = _build.nvcc(REPO / "scripts_torch" / "hmma_probe.cu", lib_path)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on hmma_probe.cu\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(lib_path))

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from tf32_emulation import tile_tf32
 
 from face_detection_recognization_pca_tpu.models import eigenfaces as jef
 from face_detection_recognization_pca_tpu.ops import pallas_kernels as jpk
@@ -195,3 +196,89 @@ def test_fused_match_counts_no_launch_on_cpu():
     before = tfm.fused_match.launches
     tfm.fused_match(**_good_args())
     assert tfm.fused_match.launches == before
+
+
+def _kernel_tf32(crops, m, bias, gallery_t, gnorm, passes):
+    """The cosines of ``csrc/fused_match.cu`` emulated in float32: each
+    block's D split by ``tile_tf32`` (3xTF32, or one TF32 pass), the
+    blocks of a cluster added in rank order, the clusters in ascending
+    order, then the bias; the scores by ``tile_tf32`` over k, divided by
+    the norms as the kernel divides."""
+    b, d = crops.shape
+    k = m.shape[1]
+    d_split, cluster = tfm._D_SPLIT, tfm._CLUSTER
+    splits = tfm._grid(b, d, k)[0]
+    pad = splits * d_split - d
+    a = np.pad(crops, ((0, 0), (0, pad))).reshape(b, splits, d_split).transpose(1, 0, 2)
+    w = np.pad(m, ((0, pad), (0, 0))).reshape(splits, d_split, k)
+    blocks = tile_tf32(a, w, passes).reshape(splits // cluster, cluster, b, k)
+    per_cluster = np.zeros(blocks.shape[:1] + (b, k), np.float32)
+    for rank in range(cluster):
+        per_cluster = per_cluster + blocks[:, rank]
+    feats = np.zeros((b, k), np.float32)
+    for part in per_cluster:
+        feats = feats + part
+    feats = feats + bias
+    fnorm = np.sqrt(np.sum(feats * feats, axis=1, dtype=np.float32))
+    return tile_tf32(feats, gallery_t, passes) / (fnorm[:, None] * gnorm[None, :])
+
+
+def test_3xtf32_projection_keeps_float32_parity_where_tf32_does_not():
+    """The kernel's arithmetic, emulated on tracker-like data: pixel-valued
+    crops (the tracker's 96 x 96 face, shifted and noised, B 64, D 9216),
+    the port's linearize_model fold of a 64-component model trained on
+    them, N 256, in the kernel's order of D splits.  Its cosines lie within
+    1e-6 of float64 and its ids equal the Pallas kernel's (interpret mode)
+    and the JAX plain path's; one TF32 pass misses float64 by far more."""
+    from face_detection_recognization_pca_tpu_torch import bench
+    from face_detection_recognization_pca_tpu_torch.models.eigenfaces import train_v1
+
+    _, gallery_images, _, _ = bench.tracker_assets(1, (400, 400), 1, 4, torch.device("cpu"))
+    model, _ = train_v1(gallery_images, n_components=bench.N_COMPONENTS)
+    lin = tfm.linearize_model(model, (bench.TPL, bench.TPL))
+    m, bias, gallery_t, gnorm = (t.numpy() for t in (lin.m, lin.bias, lin.gallery_t,
+                                                      lin.gallery_norm))
+    rng = np.random.default_rng(0)
+    crops = (gallery_images.numpy()[::4] + rng.normal(0, 3, (64, m.shape[0]))).astype(np.float32)
+
+    f64 = crops.astype(np.float64) @ m.astype(np.float64) + bias
+    exact = (f64 @ gallery_t.astype(np.float64)
+             / np.linalg.norm(f64, axis=1)[:, None] / gnorm.astype(np.float64)[None, :])
+    cos3 = _kernel_tf32(crops, m, bias, gallery_t, gnorm, 3)
+    assert np.abs(cos3 - exact).max() <= 1e-6
+    cos1 = _kernel_tf32(crops, m, bias, gallery_t, gnorm, 1)
+    assert np.abs(cos1 - exact).max() > 1e-5
+
+    jlin = jpk.LinearizedModel(jnp.asarray(m), jnp.asarray(bias), jnp.asarray(gallery_t),
+                               jnp.asarray(gnorm), jnp.zeros(gnorm.shape, jnp.int32),
+                               (bench.TPL, bench.TPL))
+    ids_j, conf_j = jpk.fused_match_pallas(
+        jnp.asarray(crops), jlin.m, jlin.bias, jlin.gallery_t, jlin.gallery_norm, tile_b=8,
+        tile_d=1024, interpret=True)
+    ids_x, _ = jpk.recognize_linearized(jlin, jnp.asarray(crops))
+    np.testing.assert_array_equal(np.argmax(cos3, axis=1), np.asarray(ids_j))
+    np.testing.assert_array_equal(np.asarray(ids_j), np.asarray(ids_x))
+    np.testing.assert_allclose(cos3.max(axis=1), np.asarray(conf_j), rtol=0, atol=CONF_ATOL)
+
+
+@pytest.mark.parametrize(
+    "b,d,k,n,fill16",
+    [(64, 9216, 64, 256, True), (130, 9216, 64, 256, True), (16, 4096, 300, 512, True),
+     (9, 2048, 7, 60, False), (5, 4099, 8, 33, False), (4, 576, 16, 42, False)],
+)
+def test_wrapper_picks_the_fill_and_sizes_grid_and_scratch(b, d, k, n, fill16):
+    """cp.async only where crops, m and gallery_t start on 16 bytes and D,
+    k and N are multiples of 4 (an offset view of the crops takes element
+    loads); the grid covers D in whole clusters of splits, k in 64-feature
+    chunks and B in 64-crop tiles, and the scratch holds one (B, k)
+    partial per cluster."""
+    crops, m, gallery_t = torch.zeros(b, d), torch.zeros(d, k), torch.zeros(k, n)
+    assert tfm._fill16(crops, m, gallery_t) == fill16
+    shifted = torch.zeros(b * d + 1)[1:].view(b, d)
+    assert not tfm._fill16(shifted, m, gallery_t)
+    x, y, z = tfm._grid(b, d, k)
+    assert x % tfm._CLUSTER == 0 and (x - tfm._CLUSTER) * tfm._D_SPLIT < d <= x * tfm._D_SPLIT
+    assert (y, z) == (-(-k // 64), -(-b // 64))
+    assert tfm._scratch_shape(b, d, k) == (x // tfm._CLUSTER, b, k)
+    if (b, d, k) == (64, 9216, 64):  # the tracker: 96 blocks in 12 clusters, all resident
+        assert (x, y, z) == (96, 1, 1)

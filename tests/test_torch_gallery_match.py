@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from tf32_emulation import dots_tf32
 
 from face_detection_recognization_pca_tpu.ops.pallas_kernels import gallery_match_pallas
 from face_detection_recognization_pca_tpu_torch.ops import gallery_match as tgm
@@ -233,30 +234,6 @@ def test_fill16_judges_the_features_base_pointer_too():
     assert not tgm._fill16(torch.zeros(5 * 128 + 1)[1:].view(5, 128), gallery_t, True)
 
 
-def _rna_tf32(x: np.ndarray) -> np.ndarray:
-    """float32 to TF32 (10 explicit mantissa bits), rounded to nearest with
-    ties away from zero as ``cvt.rna.tf32.f32`` rounds, the 13 low bits
-    zero: a carry out of them rounds the magnitude up."""
-    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def _dots_tf32(feats: np.ndarray, gallery: np.ndarray, passes: int) -> np.ndarray:
-    """feats @ gallery.T as the kernel's tensor cores take it, in float32:
-    k in steps of 8 (one m16n8k8), each operand split into hi =
-    rna_tf32(x) and lo = rna_tf32(x - hi).  ``passes`` 3 is 3xTF32 (lo*hi
-    and hi*lo before hi*hi in the same accumulators); 1 is plain TF32."""
-    acc = np.zeros((feats.shape[0], gallery.shape[0]), np.float32)
-    for k0 in range(0, feats.shape[1], 8):
-        a, b = feats[:, k0:k0 + 8], gallery[:, k0:k0 + 8]
-        ah, bh = _rna_tf32(a), _rna_tf32(b)
-        al, bl = _rna_tf32(a - ah), _rna_tf32(b - bh)
-        terms = [(al, bh), (ah, bl), (ah, bh)] if passes == 3 else [(ah, bh)]
-        for x, y in terms:
-            acc += x @ y.T  # products of two TF32 values are exact in float32
-    return acc
-
-
 def test_3xtf32_keeps_float32_parity_where_tf32_does_not():
     """The float32 path of the kernel, emulated: on large-gallery data
     (B 64, k 128, N 4096) its cosines lie within 1e-6 of float64 and its
@@ -273,9 +250,9 @@ def test_3xtf32_keeps_float32_parity_where_tf32_does_not():
              / np.linalg.norm(feats.astype(np.float64), axis=1)[:, None]
              / np.linalg.norm(gallery.astype(np.float64), axis=1)[None, :])
 
-    cos3 = _dots_tf32(feats, gallery, 3) * frinv[:, None] * grinv[None, :]
+    cos3 = dots_tf32(feats, gallery, 3) * frinv[:, None] * grinv[None, :]
     assert np.abs(cos3 - exact).max() <= 1e-6
-    cos1 = _dots_tf32(feats, gallery, 1) * frinv[:, None] * grinv[None, :]
+    cos1 = dots_tf32(feats, gallery, 1) * frinv[:, None] * grinv[None, :]
     assert np.abs(cos1 - exact).max() > 1e-5
 
     ids, best = _jax(feats, gallery, gnorm, tile_b=64, tile_n=512)

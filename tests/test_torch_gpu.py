@@ -106,6 +106,68 @@ def test_small_slice_on_card_runs_through_the_kernel(cuda_device):
     assert bench.planted_exact(wout, plants)
 
 
+def _fused_case(device, b, d, k, n, seed):
+    """Crops near gallery rows 0, 1, ... (mod n), a gallery of their
+    features, m and bias: the shape of the tracker's operands."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    m = torch.randn(d, k, generator=g, device=device) / d ** 0.5
+    bias = torch.randn(k, generator=g, device=device)
+    base = 25 * torch.randn(n, d, generator=g, device=device)
+    feats = base @ m + bias
+    near = torch.arange(b, device=device) % n
+    crops = (base[near] + 5 * torch.randn(b, d, generator=g, device=device)).contiguous()
+    return crops, m, bias, feats.T.contiguous(), torch.linalg.vector_norm(feats, dim=1), near
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,d,k,n", [(130, 9216, 64, 256), (9, 2048, 7, 60)])
+def test_kernel_takes_three_crop_tiles_and_unaligned_rows(cuda_device, b, d, k, n):
+    """B = 130 spans three 64-crop tiles; k = 7 leaves m's rows off 16-byte
+    boundaries, so the kernel fills its tiles by element loads."""
+    crops, m, bias, gallery_t, gnorm, near = _fused_case(cuda_device, b, d, k, n, seed=b)
+    assert tfm._fill16(crops, m, gallery_t) == (k % 4 == 0)
+    ids_k, conf_k = tfm.fused_match(crops, m, bias, gallery_t, gnorm)
+    lin = tfm.LinearizedModel(m, bias, gallery_t, gnorm, torch.zeros(n, dtype=torch.int32),
+                              (1, d))
+    ids_p, conf_p = tfm.recognize_linearized(lin, crops)
+    torch.cuda.synchronize()
+    assert torch.equal(ids_k, ids_p)
+    assert float((conf_k - conf_p).abs().max()) <= CONF_ATOL
+    if k == 64:
+        assert torch.equal(ids_k.long(), near)
+
+
+@pytest.mark.gpu
+def test_kernel_repeats_bit_for_bit_and_replays_in_a_cuda_graph(cuda_device):
+    """The split sums run in a fixed order, so two calls give the same
+    bits; the counters return to 0, so a CUDA graph's replays give them
+    too."""
+    args = _fused_case(cuda_device, 64, 9216, 64, 256, seed=7)[:5]
+    first, second = tfm.fused_match(*args), tfm.fused_match(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfm.fused_match(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = tfm.fused_match(*args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, replayed))
+
+
+@pytest.mark.gpu
+def test_wrapper_sizes_what_the_kernel_needs(cuda_device):
+    lib = tfm._lib()
+    for b, d, k in [(64, 9216, 64), (130, 4099, 300), (1, 7, 1), (9, 2048, 7)]:
+        clusters, _, _ = tfm._scratch_shape(b, d, k)
+        assert lib.fused_match_scratch_floats(b, d, k, tfm._D_SPLIT) == clusters * b * k
+        assert lib.fused_match_counters(b) == tfm._grid(b, d, k)[2]
+
+
 def _gallery(device, b, k, n, seed):
     g = torch.Generator(device=device).manual_seed(seed)
     feats = torch.randn(b, k, generator=g, device=device)
