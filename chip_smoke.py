@@ -16,14 +16,16 @@ Phases, each printing a line:
 3. fused kernel against plain: ``fused_match`` against
    ``recognize_linearized`` on the card at the tracker's shapes, a ragged
    masked case, an exact tie, a zero-norm crop, k = 300, B = 130 (three
-   64-crop tiles) and k = 7 (rows off 16-byte boundaries, element loads):
-   ids equal, conf within 1e-5; then two calls and a CUDA graph's replays
-   must give the same bits.  Kernel, plain and ``crops @ m``
-   (``library_ms``) are timed in the order plain, kernel, library,
-   library, kernel, plain, by CUDA events around 200 Python calls and
-   around replays of a CUDA graph of 50 calls (the card alone, the
-   ``ms`` of the JSON line), with ``torch.profiler``'s kernel sums as a
-   cross-check, beside the card's bound for the same work;
+   64-crop tiles), k = 7 (rows off 16-byte boundaries, element loads),
+   B = 512 (the headline's batch) and B = 1 (the scan's): ids equal, conf
+   within 1e-5; then two calls and a CUDA graph's replays must give the
+   same bits.  Kernel, plain and ``crops @ m`` (``library_ms``) are timed
+   in the order plain, kernel, library, library, kernel, plain, by CUDA
+   events around 200 Python calls and around replays of a CUDA graph of
+   50 calls (the card alone, the ``ms`` of the JSON line), with
+   ``torch.profiler``'s kernel sums as a cross-check, beside the card's
+   bound for the same work; the same at B = 512 (``b512`` in the JSON
+   line);
 4. the tracker slice: ``tracker_assets`` at 1080p with 64 streams and 8
    frame batches (seed 4), a snapshot-PCA model trained on the card, then
    8 ``process_batch`` steps and one 8-frame ``process_window``; every
@@ -46,7 +48,23 @@ Phases, each printing a line:
    ``library_ms`` and bound timed on one shard); then ``dp_recognize``
    against ``recognize`` on 1024 crops, and ``multichip_train_step`` on
    2048 images of 64 x 64 with k = 128 on both meshes against the dense
-   ``snapshot_pca``.
+   ``snapshot_pca``;
+7. the headline, the metric of record: ``bench.headline`` at 1080p with
+   16 streams and 32 frame batches, 512 windows of 192 x 192 per dispatch
+   through the tracker's step math and one ``fused_match`` launch (B =
+   512, D = 9216, k = 64, N = 256).  It prints frames/s/card, the step's
+   ms, the kernels' ms and launches per dispatch and their share of the
+   step (``torch.profiler``), TFLOP/s by the closed form, and the seconds
+   of a 969 x 4096, k = 100 PCA training.  Every planted offset and
+   gallery row must be exact and the kernel must have been launched;
+8. the tracked scan of one video, without OpenCV: a model trained on the
+   card is written with ``to_artifact`` + ``save_model_v1`` into a
+   temporary lock directory beside a detection JSON, read back by
+   ``scan_batches_tracked``, and 256 uint8 1080p frames made on the host
+   (``bench.scan_assets``, a face that drifts up to 3 px per frame) are
+   fed in batches of 16.  Every record must hold the planted position and
+   the enrolled person, with one ``fused_match`` launch per frame.  Its
+   frames/s include the host-to-device copy of every batch.
 
 The line before the last is a JSON object describing each kernel, with
 its time, its plain version's, ``library_ms``, its HMMA counts and
@@ -64,10 +82,13 @@ sees no CUDA device.
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -75,8 +96,19 @@ import numpy as np
 import torch
 
 from face_detection_recognization_pca_tpu_torch import bench, device as port_device
+from face_detection_recognization_pca_tpu_torch.io.artifacts import save_model_v1
+from face_detection_recognization_pca_tpu_torch.io.detection_json import (
+    DetectionFile,
+    DetectionRecord,
+    write_detection_json,
+)
+from face_detection_recognization_pca_tpu_torch.io.video import VideoMeta
 from face_detection_recognization_pca_tpu_torch.linalg.pca import snapshot_pca
-from face_detection_recognization_pca_tpu_torch.models.eigenfaces import recognize, train_v1
+from face_detection_recognization_pca_tpu_torch.models.eigenfaces import (
+    recognize,
+    to_artifact,
+    train_v1,
+)
 from face_detection_recognization_pca_tpu_torch.ops import _build
 from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
     LinearizedModel,
@@ -98,11 +130,16 @@ from face_detection_recognization_pca_tpu_torch.parallel import (
 from face_detection_recognization_pca_tpu_torch.parallel.multistream import (
     MultiStreamRecognizer,
 )
+from face_detection_recognization_pca_tpu_torch.pipeline.tracked_scan import (
+    scan_batches_tracked,
+)
 
 CONF_ATOL = 1e-5  # float32 sums in another order than cuBLAS's; cosines ~1
 CONF_ATOL_BF16 = 2e-3  # bf16 operands, against plain with the same rounding
 NEAR_TIE = 1e-5  # a differing id on random data: plain cosines this close
 STREAMS, BATCHES, SEED = 64, 8, 4
+HEADLINE_STREAMS, HEADLINE_BATCHES = 16, 32
+SCAN_FRAMES, SCAN_BATCH, SCAN_SEED, SCAN_PERSON = 256, 16, 7, "planted_person"
 GALLERY_B, GALLERY_K, GALLERY_N, GALLERY_SEED = 1024, 128, 1_048_573, 9
 JAX_SHAPE_N = 131072  # the JAX package's per-chip target (bench_large_gallery)
 TRAIN_N, TRAIN_SIDE, TRAIN_K, TRAIN_SEED = 2048, 64, 128, 6
@@ -289,6 +326,8 @@ def phase_kernel_vs_plain(dev) -> dict:
         "k300": _match_case(dev, gen, 16, 4096, 300, 512, near=list(range(0, 512, 32))),
         "b130": _match_case(dev, gen, 130, 96 * 96, 64, 256, near=[i % 256 for i in range(130)]),
         "k7": _match_case(dev, gen, 9, 2048, 7, 60, near=list(range(0, 60, 7))),
+        "b512": _match_case(dev, gen, 512, 96 * 96, 64, 256, near=[i % 256 for i in range(512)]),
+        "b1": _match_case(dev, gen, 1, 96 * 96, 64, 256, near=[201]),
     }
     check(not _fill16(*cases["k7"][:2], cases["k7"][3]), "k = 7 takes the element fill")
     check(_fill16(*cases["slice"][:2], cases["slice"][3]), "the slice takes the cp.async fill")
@@ -315,6 +354,9 @@ def phase_kernel_vs_plain(dev) -> dict:
     check(k300_ids.tolist() == list(range(0, 512, 32)), "k = 300 finds every near row")
     check(fused_match(*cases["b130"])[0].tolist() == [i % 256 for i in range(130)],
           "B = 130 finds every near row")
+    check(fused_match(*cases["b512"])[0].tolist() == [i % 256 for i in range(512)],
+          "B = 512 finds every near row")
+    check(fused_match(*cases["b1"])[0].tolist() == [201], "B = 1 finds its near row")
 
     # The split sums run in a fixed order: two calls give the same bits,
     # and so does a CUDA graph's replay (the counters start from 0 again).
@@ -367,7 +409,25 @@ def phase_kernel_vs_plain(dev) -> dict:
           f"{fmt(dev_only['plain'])}, crops @ m {fmt(dev_only['library'])}; torch.profiler "
           f"kernel sums {json.dumps(prof)}; bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), "
           f"share {timing['share']:.3f}")
-    return {"max_abs_err": max_err, **timing}
+
+    # The headline's batch: B = 512 in one launch, eight 64-crop tiles.
+    crops, m, bias, gallery_t, gnorm, _ = cases["b512"]
+    lin = LinearizedModel(m, bias, gallery_t, gnorm, lin.labels, (96, 96))
+    turns = bench.time_in_turns(
+        {"plain": lambda: recognize_linearized(lin, crops),
+         "kernel": lambda: fused_match(crops, m, bias, gallery_t, gnorm),
+         "library": lambda: crops @ m},
+        ("plain", "kernel", "library", "library", "kernel", "plain"), loop_iters=50,
+        graph_calls=20)
+    mean = {clock: {name: sum(v) / len(v) for name, v in t.items()} for clock, t in turns.items()}
+    bnd = fused_bound(512, d, k, n)
+    b512 = {"ms": mean["device"]["kernel"], "event_loop_ms": mean["loop"]["kernel"],
+            "plain_ms": mean["device"]["plain"], "plain_event_loop_ms": mean["loop"]["plain"],
+            "library_ms": mean["loop"]["library"], "library_device_ms": mean["device"]["library"],
+            **bnd, "share": bnd["bound_ms"] / mean["device"]["kernel"]}
+    print(f"[kernel] headline shape B=512 D={d} k={k} N={n}, mean ms per call: "
+          f"{json.dumps(b512)}")
+    return {"max_abs_err": max_err, **timing, "b512": b512}
 
 
 def phase_slice(dev, card: str) -> int:
@@ -685,6 +745,94 @@ def phase_gallery_slice(dev, card: str) -> tuple:
     return launches, n1m
 
 
+def phase_headline(dev, card: str) -> int:
+    fused_match.launches = gallery_match.launches = 0
+    t0 = time.perf_counter()
+    result = bench.headline(streams=HEADLINE_STREAMS, t_frames=HEADLINE_BATCHES, device=dev)
+    launches = fused_match.launches
+    detail = result["detail"]
+    print(f"[headline] {result['metric']}: {result['value']} {result['unit']}; self-check "
+          f"{detail['self_check']} (planted offsets exact {detail['planted_offset_exact']}, "
+          f"gallery row 0 {detail['planted_id_rate']}) over {detail['frames_per_dispatch']} "
+          f"frames per dispatch; step {detail['step_ms']} ms (host clock, best of 3 windows of "
+          f"20 dispatches); device {detail['device_ms']} ms in {detail['kernel_launches']} "
+          f"kernels per dispatch (torch.profiler), busy share {detail['busy_share']}; "
+          f"{detail['headline_tflops']} TFLOP/s by the closed form of "
+          f"{detail['headline_mflops_per_frame']} MFLOP per frame; fused_match launches "
+          f"{launches}; PCA train 969x4096 k=100 {detail['pca_train_wall_s_969x4096_k100']} s; "
+          f"min conf {detail['min_pca_conf']}, min template conf {detail['min_tm_conf']}; "
+          f"phase {time.perf_counter() - t0:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}")
+    check(detail["self_check"] == "ok" and result["value"] > 0,
+          f"headline self-check: {detail['self_check']}")
+    check(detail["frames_per_dispatch"] == HEADLINE_STREAMS * HEADLINE_BATCHES,
+          "the headline ran at its full batch")
+    check(launches >= 1 and launches == detail["fused_match_launches"],
+          f"the headline launched fused_match {launches} times")
+    check(gallery_match.launches == 0, "the headline does not use the gallery kernel")
+    check(detail["device_ms"] is not None, "torch.profiler saw the headline's kernels")
+    return launches
+
+
+def phase_scan(dev, card: str) -> int:
+    h, w = bench.SIZES["1080p"]
+    t0 = time.perf_counter()
+    frames, gallery_images, face, plants = bench.scan_assets(SCAN_FRAMES, (h, w), SCAN_SEED)
+    model, aux = train_v1(torch.from_numpy(gallery_images).to(dev),
+                          n_components=bench.N_COMPONENTS)
+    print(f"[scan] {SCAN_FRAMES} uint8 frames {frames.shape[1:]} on the host and a model "
+          f"trained on the card in {time.perf_counter() - t0:.2f} s; cv2 importable here: "
+          f"{importlib.util.find_spec('cv2') is not None} (not needed)")
+    y0, x0 = (int(v) for v in plants[0])
+    side = face.shape[0]
+    prior = DetectionRecord(
+        face_id=0, frame_number=0, timestamp=0.0, x=x0, y=y0, width=side, height=side,
+        center_x=x0 + side // 2, center_y=y0 + side // 2, area=side * side,
+        image_path="face_0_frame_0.jpg", image_filename="face_0_frame_0.jpg")
+    clock = {}
+
+    def batches():
+        clock["first"] = time.perf_counter()
+        for i in range(0, SCAN_FRAMES, SCAN_BATCH):
+            yield frames[i:i + SCAN_BATCH], SCAN_BATCH
+
+    with tempfile.TemporaryDirectory() as lock_dir:
+        person_dir = os.path.join(lock_dir, SCAN_PERSON)
+        os.makedirs(person_dir)
+        save_model_v1(to_artifact(model, aux, person_name=SCAN_PERSON),
+                      os.path.join(person_dir, "face_model.pkl"))
+        write_detection_json(
+            DetectionFile("synthetic", SCAN_FRAMES, 30.0, 1, "", [prior]),
+            os.path.join(person_dir, f"{SCAN_PERSON}_faces_detection.json"))
+        fused_match.launches = gallery_match.launches = 0
+        t0 = time.perf_counter()
+        records = scan_batches_tracked(
+            batches(), VideoMeta(w, h, 30.0, SCAN_FRAMES), SCAN_PERSON, lock_dir=lock_dir,
+            device=dev, template_full=face)
+        t1 = time.perf_counter()
+    launches = fused_match.launches
+
+    check(len(records) == SCAN_FRAMES, f"{len(records)} records for {SCAN_FRAMES} frames")
+    got = np.array([(r["y"], r["x"]) for r in records])
+    check(np.array_equal(got, plants), "every record holds the planted position")
+    check(all(r["person_id"] == 0 and r["person_name"] == SCAN_PERSON for r in records),
+          "every record names the enrolled person")
+    check([r["frame_number"] for r in records] == list(range(SCAN_FRAMES)), "frame numbers")
+    check(all(r["width"] == side and r["height"] == side for r in records), "box sizes")
+    conf = min(r["confidence"] for r in records)
+    tm_conf = min(r["template_match_confidence"] for r in records)
+    check(conf > 0.999 and tm_conf > 0.99, f"planted face scores ~1: {conf}, {tm_conf}")
+    check(launches == SCAN_FRAMES, f"fused_match launched {launches} times, want {SCAN_FRAMES}")
+    check(gallery_match.launches == 0, "the scan does not use the gallery kernel")
+    print(f"[scan] planted-exact over {SCAN_FRAMES} frames in batches of {SCAN_BATCH}; "
+          f"fused_match launches {launches}; min conf {conf:.6f}, min template conf "
+          f"{tm_conf:.6f}; {SCAN_FRAMES / (t1 - clock['first'])} frames/s from the first batch "
+          f"to the last record, {SCAN_FRAMES / (t1 - t0)} frames/s with the model load and the "
+          f"tracker's set-up (host clock; the host-to-device copy of every uint8 batch is "
+          f"inside both; no decoder runs); card {card}")
+    return launches
+
+
 def main() -> int:
     dev = phase_environment()
     card = torch.cuda.get_device_name(0)
@@ -695,9 +843,13 @@ def main() -> int:
     gallery = phase_gallery_vs_plain(dev)
     torch.cuda.empty_cache()
     gallery_launches, n1m = phase_gallery_slice(dev, card)
+    torch.cuda.empty_cache()
+    by_path = {"tracker": fused_launches, "headline": phase_headline(dev, card)}
+    torch.cuda.empty_cache()
+    by_path["scan"] = phase_scan(dev, card)
     print(json.dumps({"kernels": [
-        {**KERNELS["fused_match"], "launches": fused_launches, **fused,
-         "hmma": hmma["fused_match"]},
+        {**KERNELS["fused_match"], "launches": sum(by_path.values()),
+         "launches_by_path": by_path, **fused, "hmma": hmma["fused_match"]},
         {**KERNELS["gallery_match"], "launches": gallery_launches, **gallery,
          "n_1048573": n1m, "hmma": hmma["gallery_match"]},
     ]}))

@@ -1,5 +1,14 @@
 """Self-checking workloads (ports of the JAX package's ``bench.py``).
 
+The headline (``bench_headline``), the metric of record: recognized 1080p
+frames per second per card for the fixed-window detect + recognize step.
+T = 32 frame batches of S streams are flattened into one batch of
+windows; every frame holds a planted face at a known offset and gallery
+row 0 is that exact face (:func:`headline_assets`), so the step
+(:func:`headline_scan`) must report every offset and row 0, or
+:func:`headline` publishes 0 frames/s.  Its secondary is the wall time of
+a PCA training at the reference's multi-person scale.
+
 The tracker (``bench._tracker_assets``), BASELINE config 5: S video
 streams of 1080p frames, each with a 96x96 planted face that drifts by
 up to 2 px per frame batch, tracked by
@@ -16,14 +25,27 @@ and by its plain version (:func:`large_gallery`).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Sequence, Tuple, Union
+import time
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from face_detection_recognization_pca_tpu_torch.device import exact_float32, require_cuda
+from face_detection_recognization_pca_tpu_torch.linalg.pca import snapshot_pca
+from face_detection_recognization_pca_tpu_torch.models.eigenfaces import train_v1
+from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
+    fused_match,
+    linearize_model,
+)
 from face_detection_recognization_pca_tpu_torch.ops.gallery_match import (
     _gallery_match_plain,
     gallery_match,
+)
+from face_detection_recognization_pca_tpu_torch.parallel.multistream import (
+    StepOperands,
+    locate_and_match,
+    step_operands,
 )
 
 SIZES = {"1080p": (1080, 1920), "720p": (720, 1280), "544p": (544, 960)}
@@ -31,6 +53,126 @@ WIN = 192  # search window side (guided scanner: 1.5-2x face box)
 TPL = 96  # template / face box side
 GALLERY_N = 256
 N_COMPONENTS = 64
+
+
+def _planted_face(rng: np.random.Generator, tpl: int) -> np.ndarray:
+    """A structured (tpl, tpl) float32 "face": smooth blobs plus N(0, 8)."""
+    yy, xx = np.mgrid[0:tpl, 0:tpl].astype(np.float32) / tpl
+    return (
+        140
+        + 60 * np.sin(6.28 * yy * 2.1)
+        + 40 * np.cos(6.28 * xx * 1.7)
+        + rng.normal(0, 8, (tpl, tpl))
+    ).astype(np.float32)
+
+
+def _gallery_images(rng: np.random.Generator, face: np.ndarray, n: int) -> np.ndarray:
+    """(n, tpl * tpl) float32 training images: row 0 the exact face, the
+    rest copies rolled by up to 2 px with N(0, 4) noise."""
+    gal = np.stack(
+        [
+            np.roll(face, (rng.integers(-2, 3), rng.integers(-2, 3)), (0, 1)).reshape(-1)
+            + rng.normal(0, 4, face.size)
+            for _ in range(n)
+        ]
+    ).astype(np.float32)
+    gal[0] = face.reshape(-1)
+    return gal
+
+
+def _noise_frames(n: int, size: Tuple[int, int], face: np.ndarray, plants: np.ndarray,
+                  seed: int, device: torch.device) -> torch.Tensor:
+    """(n, H, W) float32 frames made on ``device``: noise ``110 + 25 N(0, 1)``
+    from a ``torch.Generator`` there seeded with ``seed``, with ``face``
+    written into frame i at ``plants[i]`` = (y, x)."""
+    h, w = size
+    tpl = face.shape[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    frames = torch.empty((n, h, w), dtype=torch.float32, device=device)
+    frames.normal_(110.0, 25.0, generator=gen)
+    plants = torch.from_numpy(plants.reshape(-1, 2)).to(device)
+    ar = torch.arange(tpl, device=device)
+    rows = (plants[:, 0, None] + ar)[:, :, None]
+    cols = (plants[:, 1, None] + ar)[:, None, :]
+    index = torch.arange(n, device=device)[:, None, None]
+    frames[index, rows, cols] = torch.from_numpy(face).to(device)
+    return frames
+
+
+def headline_assets(
+    streams: int,
+    size: Tuple[int, int],
+    device: torch.device,
+    gallery_n: int = GALLERY_N,
+    k: int = N_COMPONENTS,
+    seed: int = 0,
+    win: int = WIN,
+    tpl: int = TPL,
+    t_frames: int = 32,
+):
+    """``(frames, (win_y, win_x), model, face, offs)`` for the headline.
+
+    ``frames``: (t_frames, S, H, W) float32 on ``device``, noise from a
+    seeded ``torch.Generator`` there (:func:`_noise_frames`), each with the
+    face planted at ``(win_y + offs[i, 0], win_x + offs[i, 1])``, i the
+    flat frame index; ``(win_y, win_x)`` is the centred search window.
+    ``model`` is a snapshot-PCA model trained on ``device`` on ``gallery_n``
+    jittered copies of the face, row 0 the exact face.  ``face`` (tpl, tpl)
+    and ``offs`` (t_frames * S, 2) are numpy.  The face, the offsets and
+    the training images come from ``np.random.default_rng(seed)`` in the
+    JAX package's order of draws, so they equal its ``_synth_assets``'s;
+    the frames' noise is this package's own."""
+    h, w = size
+    rng = np.random.default_rng(seed)
+    face = _planted_face(rng, tpl)
+    win_y, win_x = (h - win) // 2, (w - win) // 2
+    offs = rng.integers(0, win - tpl, (t_frames * streams, 2)).astype(np.int32)
+    frames = _noise_frames(
+        t_frames * streams, size, face, offs + np.array([win_y, win_x], np.int32), seed, device
+    ).reshape(t_frames, streams, h, w)
+    images = torch.from_numpy(_gallery_images(rng, face, gallery_n)).to(device)
+    model, _ = train_v1(images, n_components=k)
+    return frames, (win_y, win_x), model, face, offs
+
+
+def headline_scan(frames_t: torch.Tensor, ops: StepOperands, win_y: int, win_x: int):
+    """One dispatch of the headline: the fixed ``win`` x ``win`` window at
+    ``(win_y, win_x)`` of all ``(T, S, H, W)`` frames, the time axis
+    flattened into the batch, through the tracker's step math
+    (:func:`..parallel.multistream.locate_and_match`: the tracker's step
+    with a fixed origin and no feedback).  Returns ``(ids, conf, tm_conf,
+    x, y)`` over the T * S frames, x and y in frame coordinates.  The
+    matmuls run in full float32 whatever the caller's TF32 setting."""
+    t, s = frames_t.shape[:2]
+    win = ops.win
+    windows = frames_t[:, :, win_y:win_y + win, win_x:win_x + win].reshape(t * s, win, win)
+    with exact_float32():
+        ids, conf, tm_conf, ly, lx = locate_and_match(windows, windows.mean(), ops)
+    return ids, conf, tm_conf, lx + win_x, ly + win_y
+
+
+def headline_flops_per_frame(k: int = N_COMPONENTS, gallery_n: int = GALLERY_N,
+                             win: int = WIN, tpl: int = TPL) -> float:
+    """Closed-form FLOPs of one frame of the headline step, the JAX
+    package's count unchanged (so the two packages' TFLOP/s divide the
+    same work, whichever way each computes it):
+
+    - DFT-matmul circular correlation: forward 6 matmuls of (n,n)@(n,n) =
+      12n^3, elementwise complex multiply ~6n^2, inverse 4 matmuls
+      (o,n)@(n,n) = 8on^2 plus 2 matmuls against (o,n) partials = 4o^2n.
+    - Banded box-filter sums s1, s2: 2n^2 o + 2n o^2 each; plus 2n^2
+      elementwise (centering, square).
+    - Crop extraction counted as the two one-hot selection matmuls of the
+      JAX step, 2tn^2 + 2nt^2 (this package gathers instead).
+    - Linearized projection 2 t^2 k; gallery dots 2kN + 3N norms.
+    """
+    n, o, t = win, win - tpl + 1, tpl
+    corr = 12 * n**3 + 6 * n**2 + 8 * o * n**2 + 4 * o**2 * n
+    banded = 2 * (2 * n**2 * o + 2 * n * o**2) + 2 * n**2
+    crops = 2 * t * n**2 + 2 * n * t**2
+    recog = 2 * (t * t) * k + 2 * k * gallery_n + 3 * gallery_n
+    return float(corr + banded + crops + recog)
 
 
 def tracker_assets(
@@ -52,13 +194,7 @@ def tracker_assets(
     package's order, so they equal its ``_tracker_assets``'s."""
     h, w = size
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:TPL, 0:TPL].astype(np.float32) / TPL
-    face = (
-        140
-        + 60 * np.sin(6.28 * yy * 2.1)
-        + 40 * np.cos(6.28 * xx * 1.7)
-        + rng.normal(0, 8, (TPL, TPL))
-    ).astype(np.float32)
+    face = _planted_face(rng, TPL)
 
     # Random interior start per stream, +-2 px drift per batch (inside the
     # tracker's re-centred window every step).
@@ -75,27 +211,35 @@ def tracker_assets(
         plants[f] = pos
         pos = pos + rng.integers(-2, 3, (streams, 2)).astype(np.int32)
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    frames = torch.empty((batches * streams, h, w), dtype=torch.float32, device=device)
-    frames.normal_(110.0, 25.0, generator=gen)
-    flat_plants = torch.from_numpy(plants.reshape(-1, 2)).to(device)
-    ar = torch.arange(TPL, device=device)
-    rows = (flat_plants[:, 0, None] + ar)[:, :, None]
-    cols = (flat_plants[:, 1, None] + ar)[:, None, :]
-    index = torch.arange(batches * streams, device=device)[:, None, None]
-    frames[index, rows, cols] = torch.from_numpy(face).to(device)
+    frames = _noise_frames(batches * streams, size, face, plants, seed, device)
     frames = frames.reshape(batches, streams, h, w)
-
-    gal_imgs = np.stack(
-        [
-            np.roll(face, (rng.integers(-2, 3), rng.integers(-2, 3)), (0, 1)).reshape(-1)
-            + rng.normal(0, 4, TPL * TPL)
-            for _ in range(GALLERY_N)
-        ]
-    ).astype(np.float32)
-    gal_imgs[0] = face.reshape(-1)
+    gal_imgs = _gallery_images(rng, face, GALLERY_N)
     return frames, torch.from_numpy(gal_imgs).to(device), face, plants
+
+
+def scan_assets(n_frames: int, size: Tuple[int, int], seed: int, step: int = 3):
+    """``(frames, gallery_images, face, plants)`` for the tracked scan of
+    one video, all numpy on the host, as a decoder would hand them over.
+
+    ``frames``: (n_frames, H, W) uint8, uniform noise in [60, 160] with
+    the uint8 ``face`` (96, 96) written at ``plants[i]`` = (y, x), which
+    starts in the interior and drifts by up to ``step`` px per frame.
+    ``gallery_images``: (256, 96*96) float32 training images whose row 0
+    is the exact face.  Everything comes from
+    ``np.random.default_rng(seed)``."""
+    h, w = size
+    rng = np.random.default_rng(seed)
+    face = np.clip(np.rint(_planted_face(rng, TPL)), 0, 255).astype(np.uint8)
+    pos = np.array([rng.integers(WIN, h - WIN), rng.integers(WIN, w - WIN)])
+    drift = rng.integers(-step, step + 1, (n_frames, 2))
+    plants = np.zeros((n_frames, 2), np.int32)
+    for i in range(n_frames):
+        plants[i] = pos
+        pos = np.clip(pos + drift[i], 0, [h - TPL, w - TPL])
+    frames = rng.integers(60, 161, (n_frames, h, w), dtype=np.uint8)
+    for frame, (y, x) in zip(frames, plants):
+        frame[y:y + TPL, x:x + TPL] = face
+    return frames, _gallery_images(rng, face.astype(np.float32), GALLERY_N), face, plants
 
 
 def planted_exact(
@@ -211,9 +355,11 @@ def device_kernels(prof) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def profiler_ms(fn: Callable[[], object], calls: int = 50) -> Union[float, None]:
-    """Kernel time per call of ``fn`` summed by ``torch.profiler`` over
-    ``calls`` eager calls, or None when the trace holds no device time."""
+def traced_kernels(fn: Callable[[], object], calls: int) -> list:
+    """(name, device us per call, launches per call) of every GPU kernel
+    that ``calls`` eager calls of ``fn`` ran, the longest first, from a
+    ``torch.profiler`` trace taken after one untraced call; empty when the
+    trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -222,8 +368,14 @@ def profiler_ms(fn: Callable[[], object], calls: int = 50) -> Union[float, None]
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(us for _, us, _ in device_kernels(prof))
-    return total_us / calls / 1e3 if total_us > 0 else None
+    return [(key, us / calls, count / calls) for key, us, count in device_kernels(prof) if us > 0]
+
+
+def profiler_ms(fn: Callable[[], object], calls: int = 50) -> Union[float, None]:
+    """Kernel time per call of ``fn`` summed by ``torch.profiler`` over
+    ``calls`` eager calls, or None when the trace holds no device time."""
+    rows = traced_kernels(fn, calls)
+    return sum(us for _, us, _ in rows) / 1e3 if rows else None
 
 
 def large_gallery(
@@ -283,3 +435,121 @@ def structured_faces(n: int, side: int, rank: int, seed: int, device: torch.devi
     coeffs = rng.standard_normal((n, rank)) * (60.0 * 0.985 ** np.arange(rank))
     images = 110.0 + coeffs @ basis.T + rng.standard_normal((n, d))
     return torch.from_numpy(images.astype(np.float32)).to(device)
+
+
+def headline_self_check(out, offs: np.ndarray, win_y: int, win_x: int) -> Tuple[float, float]:
+    """``(planted_offset_exact, planted_id_rate)`` of one :func:`headline_scan`
+    result: the share of frames whose reported (x, y) equals the planted
+    position, and the share whose gallery row is 0.  Both must be 1.0."""
+    ids, _, _, x, y = (a.cpu().numpy().reshape(-1) for a in out)
+    if x.shape[0] != offs.shape[0]:
+        return 0.0, 0.0
+    offset_exact = float(np.mean((x == win_x + offs[:, 1]) & (y == win_y + offs[:, 0])))
+    return offset_exact, float(np.mean(ids == 0))
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def headline(
+    streams: int = 16,
+    size: Tuple[int, int] = SIZES["1080p"],
+    iters: int = 20,
+    warmup: int = 3,
+    win: int = WIN,
+    tpl: int = TPL,
+    t_frames: int = 32,
+    with_train: bool = True,
+    device: Optional[torch.device] = None,
+) -> Dict[str, object]:
+    """The metric of record (port of ``bench_headline``): frames per second
+    per card of :func:`headline_scan` over ``t_frames`` x ``streams`` frames
+    of ``size`` made by :func:`headline_assets`, plus the PCA-train
+    secondary.  ``device=None`` means the CUDA device.
+
+    A dispatch is timed by the host clock around ``iters`` synchronised
+    dispatches, best of 3 such windows after ``warmup`` dispatches.  The fps
+    is published only if the step recognized what was planted: every
+    reported position equals the planted one and every gallery row is 0,
+    over all frames; otherwise ``value`` is 0.  On a CUDA device
+    ``torch.profiler`` also gives the kernel time and launches per dispatch
+    (``device_ms``, ``kernel_launches``) and their share of the step
+    (``busy_share``).  ``fused_match_launches`` counts this function's
+    launches of the fused kernel.  The secondary: ``snapshot_pca`` of 969 x
+    4096 float32 at k = 100 (the reference's multi-person scale), second
+    call, synchronised."""
+    device = require_cuda() if device is None else torch.device(device)
+    launches0 = fused_match.launches
+    frames, (win_y, win_x), model, face, offs = headline_assets(
+        streams, size, device, win=win, tpl=tpl, t_frames=t_frames
+    )
+    ops = step_operands(linearize_model(model, (tpl, tpl)), face, win, device)
+
+    def dispatch():
+        return headline_scan(frames, ops, win_y, win_x)
+
+    for _ in range(1 + warmup):
+        out = dispatch()
+    _synchronize(device)
+    dt = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = dispatch()
+        _synchronize(device)
+        dt = min(dt, (time.perf_counter() - t0) / iters)
+    n_frames = t_frames * streams
+    fps = n_frames / dt
+
+    offset_exact, id_rate = headline_self_check(out, offs, win_y, win_x)
+    ok = offset_exact == 1.0 and id_rate == 1.0
+    conf, tm_conf = out[1], out[2]
+
+    device_ms = kernel_launches = busy_share = None
+    rows = traced_kernels(dispatch, 5) if device.type == "cuda" else []
+    if rows:
+        device_ms = sum(us for _, us, _ in rows) / 1e3
+        kernel_launches = sum(count for _, _, count in rows)
+        busy_share = device_ms / (dt * 1e3)
+    launches = fused_match.launches - launches0
+
+    train_wall_s = 0.0
+    if with_train:
+        train_x = torch.from_numpy(
+            np.random.default_rng(1).normal(120, 30, (969, 4096)).astype(np.float32)
+        ).to(device)
+        for _ in range(2):
+            _synchronize(device)
+            t1 = time.perf_counter()
+            snapshot_pca(train_x, 100)
+            _synchronize(device)
+            train_wall_s = time.perf_counter() - t1
+
+    flops_frame = headline_flops_per_frame(model.n_components, model.gallery.shape[0], win, tpl)
+    name = next((key for key, hw in SIZES.items() if hw == tuple(size)), f"{size[0]}x{size[1]}")
+    return {
+        "metric": f"recognized {name} frames/sec/card (fused guided detect+project+match, "
+                  f"{streams} streams)",
+        "value": fps if ok else 0.0,
+        "unit": "frames/s/card" if device.type == "cuda" else "frames/s on the CPU",
+        "detail": {
+            "streams": streams,
+            "frames_per_dispatch": n_frames,
+            "step_ms": dt * 1e3,
+            "device_ms": device_ms,
+            "kernel_launches": kernel_launches,
+            "busy_share": busy_share,
+            "fused_match_launches": launches,
+            "headline_mflops_per_frame": flops_frame / 1e6,
+            "headline_tflops": fps * flops_frame / 1e12,
+            "min_pca_conf": float(conf.min()),
+            "min_tm_conf": float(tm_conf.min()),
+            "planted_offset_exact": offset_exact,
+            "planted_id_rate": id_rate,
+            "self_check": "ok" if ok else "FAILED (fps zeroed)",
+            "pca_train_wall_s_969x4096_k100": train_wall_s,
+            "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        },
+    }

@@ -4,13 +4,17 @@ The planted-exact tracker check and the 1e-5 parity tolerances assume
 full float32 products.  PyTorch keeps matmuls in float32 by default, but
 cuDNN convolutions run in TF32 unless ``torch.backends.cudnn.allow_tf32``
 is False, and ``torch.set_float32_matmul_precision("high")`` turns TF32
-on for matmuls too.  Callers that need the exact path call
-:func:`disable_tf32` and check :func:`tf32_flags`.
+on for matmuls too.  The entry points whose results are held to those
+tolerances (``MultiStreamRecognizer``'s steps, ``bench.headline`` and the
+tracked scan) compute under :func:`exact_float32`, which turns both
+switches off and puts them back; a script that wants them off for good
+calls :func:`disable_tf32` and checks :func:`tf32_flags`.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator
 
 import torch
 
@@ -35,3 +39,22 @@ def disable_tf32() -> Dict[str, bool]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return tf32_flags()
+
+
+@contextlib.contextmanager
+def exact_float32() -> Iterator[None]:
+    """Both TF32 switches off inside the block, and back as they were
+    after it, so float32 matmuls in the block are full float32 whatever
+    the caller set (``set_float32_matmul_precision("high")`` included).
+
+    The switches are process-wide: other threads see them off meanwhile.
+    They are read through ``allow_tf32``; where a caller has set
+    ``fp32_precision`` (the newer interface) as well, PyTorch refuses the
+    read with a ``RuntimeError`` that names the mix, and nothing runs."""
+    before = tf32_flags()
+    disable_tf32()
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before["matmul_allow_tf32"]
+        torch.backends.cudnn.allow_tf32 = before["cudnn_allow_tf32"]

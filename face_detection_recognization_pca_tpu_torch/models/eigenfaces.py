@@ -2,9 +2,11 @@
 
 The model's tensors are buffers, so ``model.to(device)`` moves them all;
 the scaler buffers are ``None`` for a v1 (snapshot, center-only) model.
-:func:`from_params` and :func:`to_params` carry weights over from and to
-the JAX package: their keys are the field names of its
-``EigenfacesModel``.
+Weights are carried over from and to the JAX package two ways:
+:func:`from_params` and :func:`to_params` by host arrays keyed by the
+field names of its ``EigenfacesModel``, and :func:`from_artifact` and
+:func:`to_artifact` by the model files of :mod:`..io.artifacts`, which
+both packages read and write.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from face_detection_recognization_pca_tpu_torch.io.artifacts import EigenfacesArtifact
 from face_detection_recognization_pca_tpu_torch.linalg.pca import snapshot_pca
 from face_detection_recognization_pca_tpu_torch.linalg.standardize import (
     ScalerParams,
@@ -160,3 +163,58 @@ def to_params(model: EigenfacesModel) -> Dict[str, Optional[np.ndarray]]:
         name: None if getattr(model, name) is None else getattr(model, name).cpu().numpy()
         for name in PARAM_NAMES
     }
+
+
+def from_artifact(
+    art: EigenfacesArtifact, dtype: torch.dtype, device: torch.device
+) -> EigenfacesModel:
+    """Load an :class:`..io.artifacts.EigenfacesArtifact` onto ``device``
+    with float buffers in ``dtype`` (a v1 artifact's projection mean is
+    its mean face)."""
+
+    def tensor(value):
+        return None if value is None else torch.from_numpy(np.asarray(value)).to(device, dtype)
+
+    pmean = art.projection_mean if art.projection_mean is not None else art.mean_face
+    return EigenfacesModel(
+        components=tensor(art.components),
+        projection_mean=tensor(pmean),
+        mean_face=tensor(art.mean_face),
+        gallery=tensor(art.features),
+        labels=torch.from_numpy(np.asarray(art.labels).astype(np.int32)).to(device),
+        scaler_mean=tensor(art.scaler_mean),
+        scaler_scale=tensor(art.scaler_scale),
+        face_shape=tuple(art.face_shape),
+        schema=art.schema,
+    )
+
+
+def to_artifact(
+    model: EigenfacesModel, aux: Optional[Mapping[str, torch.Tensor]] = None, **meta
+) -> EigenfacesArtifact:
+    """Model -> serializable artifact, the inverse of :func:`from_artifact`.
+    ``aux`` is the trainer's (``eigenvalues``, ``explained_variance_ratio``);
+    ``meta`` may give ``person_id_map``, ``person_name``, ``version``,
+    ``training_date``, ``face_info`` and ``training_filenames``."""
+    params = to_params(model)
+    aux = {key: value.cpu().numpy() for key, value in (aux or {}).items()}
+    return EigenfacesArtifact(
+        components=params["components"],
+        mean_face=params["mean_face"],
+        features=params["gallery"],
+        labels=params["labels"],
+        person_id_map=meta.get("person_id_map", {}),
+        face_shape=tuple(model.face_shape),
+        n_components=model.n_components,
+        schema=model.schema,
+        scaler_mean=params["scaler_mean"],
+        scaler_scale=params["scaler_scale"],
+        projection_mean=params["projection_mean"],
+        eigenvalues=aux.get("eigenvalues"),
+        explained_variance_ratio=aux.get("explained_variance_ratio"),
+        person_name=meta.get("person_name"),
+        version=meta.get("version"),
+        training_date=meta.get("training_date"),
+        face_info=meta.get("face_info"),
+        training_filenames=meta.get("training_filenames"),
+    )

@@ -1,9 +1,10 @@
 """Face-crop preprocessing: gray -> resize -> flatten (port of
-``ops/preprocess.py``, float path).
+``ops/preprocess.py``).
 
-The exact uint8 path (``exact=True``) needs the fixed-point resize
-``resize_bilinear_u8_exact``, which is not ported yet (ROADMAP queue 1,
-item 2); it raises rather than fall back to the float path.
+Two paths, as in the JAX package: the float one (matmul resize, within
+one uint8 step of OpenCV) and, with ``exact=True``, OpenCV's own 8-bit
+fixed-point arithmetic bit for bit (``bgr_to_gray_exact`` and
+``resize_bilinear_u8_exact``), which the artifact-compatible flows use.
 """
 
 from __future__ import annotations
@@ -12,8 +13,14 @@ from typing import Tuple
 
 import torch
 
-from face_detection_recognization_pca_tpu_torch.ops.color import bgr_to_gray
-from face_detection_recognization_pca_tpu_torch.ops.resize import resize_bilinear
+from face_detection_recognization_pca_tpu_torch.ops.color import (
+    bgr_to_gray,
+    bgr_to_gray_exact,
+)
+from face_detection_recognization_pca_tpu_torch.ops.resize import (
+    resize_bilinear,
+    resize_bilinear_u8_exact,
+)
 
 
 def preprocess_crops(
@@ -24,14 +31,15 @@ def preprocess_crops(
 ) -> torch.Tensor:
     """Crops ``(B, H, W)`` gray or ``(B, H, W, 3)`` BGR -> face vectors
     ``(B, w * h)``; ``face_size`` is ``(width, height)``, cv2's order, and
-    the flatten is row-major like ``np.ndarray.flatten``."""
+    the flatten is row-major like ``np.ndarray.flatten``.  With ``exact``
+    the crops are taken as uint8 (a float crop is truncated, as a cast
+    does) and every pixel equals ``cv2.cvtColor`` + ``cv2.resize``'s."""
     if exact:
-        raise NotImplementedError(
-            "exact=True needs resize_bilinear_u8_exact, not ported yet "
-            "(ROADMAP queue 1, item 2)"
-        )
-    gray = bgr_to_gray(crops, dtype) if crops.dim() == 4 else crops
-    resized = resize_bilinear(gray, face_size, dtype=dtype)
+        gray = bgr_to_gray_exact(crops) if crops.dim() == 4 else crops
+        resized = resize_bilinear_u8_exact(gray.to(torch.uint8), face_size)
+    else:
+        gray = bgr_to_gray(crops, dtype) if crops.dim() == 4 else crops
+        resized = resize_bilinear(gray, face_size, dtype=dtype)
     return resized.reshape(resized.shape[0], -1).to(dtype)
 
 

@@ -3,7 +3,7 @@ recognition, gallery sharding over the ``model`` axis and feature-sharded
 snapshot PCA (port of the JAX package's ``parallel``).
 
 Not ported yet: ``parallel/distributed.py`` (multi-process and
-multi-host meshes) and ``MultiStreamRecognizer``'s ``mesh`` option.
+multi-host meshes).
 """
 
 from face_detection_recognization_pca_tpu_torch.parallel.mesh import (  # noqa: F401

@@ -9,17 +9,30 @@ frame.  :meth:`MultiStreamRecognizer.process_batch` runs one frame of
 every stream; :meth:`~MultiStreamRecognizer.process_window` runs T
 frames in a Python loop, carrying the origins on the device.
 
-Not ported yet: the JAX version's ``mesh`` data parallelism.
+With a ``mesh`` the streams are split into contiguous chunks over the
+``data`` axis, in one process like :mod:`.sharding`: each device holds a
+copy of the model operands and runs its streams, and the results are
+concatenated in stream order on the mesh's first device.  One thing
+crosses the shards: the NCC statistics are centred on the mean of every
+window of the step, so the windows are gathered on the first device and
+that mean is taken there, by the same reduction as without a mesh.  A
+mean per shard would change ``s1`` and ``s2`` and could move an argmax.
+
+Both entry points compute under :func:`..device.exact_float32`: the
+1e-5 parity with the JAX package and the planted-exact check need full
+float32 products in the DFT and banded matmuls, whatever TF32 setting
+the caller runs with.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from face_detection_recognization_pca_tpu_torch.device import exact_float32
 from face_detection_recognization_pca_tpu_torch.ops.dft_match import (
     make_circular_correlator,
 )
@@ -28,6 +41,7 @@ from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
     fused_match,
     linearize_model,
 )
+from face_detection_recognization_pca_tpu_torch.parallel.mesh import Mesh
 
 
 @dataclasses.dataclass
@@ -37,39 +51,75 @@ class MultiStreamState:
     origin: torch.Tensor  # (S, 2) int32
 
 
-def _frame_step(
-    frames: torch.Tensor,  # (S, H, W) float32
-    origin: torch.Tensor,  # (S, 2) int32
-    win: int,
-    tpl: int,
-    corr: Callable[[torch.Tensor], torch.Tensor],
-    band: torch.Tensor,  # (win, out_n) banded ones
-    t_energy: torch.Tensor,  # () float32
-    lin: LinearizedModel,
-):
-    s, fh, fw = frames.shape
-    out_n = win - tpl + 1
-    ar_win = torch.arange(win, device=frames.device, dtype=torch.int32)
-    ar_tpl = torch.arange(tpl, device=frames.device, dtype=torch.int32)
-    streams = torch.arange(s, device=frames.device)[:, None, None]
+class StepOperands(NamedTuple):
+    """What a step needs besides the frames, all on one device."""
 
-    # dynamic_slice semantics: the start is clamped so the window fits.
+    win: int
+    tpl: int
+    corr: Callable[[torch.Tensor], torch.Tensor]  # the NCC numerator
+    band: torch.Tensor  # (win, out_n) banded ones
+    t_energy: torch.Tensor  # () float32
+    lin: LinearizedModel
+
+
+def step_operands(lin: LinearizedModel, template: np.ndarray, win: int,
+                  device: torch.device) -> StepOperands:
+    """The operands of :func:`locate_and_match` on ``device``, for a square
+    ``template`` (raw pixels) searched in ``win`` x ``win`` windows and a
+    linearized model for crops of the template's size."""
+    tpl = int(template.shape[0])
+    t0 = np.asarray(template, np.float32)
+    t0 = t0 - t0.mean()
+    out_n = win - tpl + 1
+    jj = np.arange(win)[:, None]
+    xx = np.arange(out_n)[None, :]
+    band = ((jj >= xx) & (jj < xx + tpl)).astype(np.float32)
+    return StepOperands(
+        win=win,
+        tpl=tpl,
+        corr=make_circular_correlator(t0, win, out_n, device),
+        band=torch.from_numpy(band).to(device),
+        t_energy=torch.tensor(np.sum(t0 * t0, dtype=np.float64).astype(np.float32),
+                              device=device),
+        lin=LinearizedModel(*(t.to(device) for t in lin[:5]), lin.crop_shape),
+    )
+
+
+def slice_windows(frames: torch.Tensor, origin: torch.Tensor, win: int) -> torch.Tensor:
+    """``(S, win, win)`` windows of ``frames`` (S, H, W) at ``origin`` (S, 2)
+    of (y, x), with dynamic_slice semantics: a start is clamped so that
+    the window fits."""
+    s, fh, fw = frames.shape
+    ar_win = torch.arange(win, device=frames.device, dtype=torch.int32)
+    streams = torch.arange(s, device=frames.device)[:, None, None]
     oy = origin[:, 0].clamp(0, fh - win)
     ox = origin[:, 1].clamp(0, fw - win)
     rows = (oy[:, None] + ar_win)[:, :, None]
     cols = (ox[:, None] + ar_win)[:, None, :]
-    windows = frames[streams, rows, cols]  # (S, win, win)
-    # One mean over every window of the step, not one per window: a
-    # centered copy for the NCC statistics only (float32 cancellation in
-    # s2 - s1^2/n); recognition crops stay raw pixels.
-    windows_c = windows - windows.mean()
+    return frames[streams, rows, cols]
 
-    num = corr(windows_c)
+
+def locate_and_match(windows: torch.Tensor, mean: torch.Tensor, ops: StepOperands):
+    """The step's math on ``(S, win, win)`` windows of raw pixels: the best
+    TM_CCOEFF_NORMED position of the template in each, and the crop there
+    recognized by :func:`..ops.fused_match.fused_match`.  Returns
+    ``(ids, conf, tm_conf, ly, lx)``: gallery rows, cosines, template
+    scores, and the hit's offset in its window.
+
+    ``mean`` is the 0-d mean of every window of the step, not one per
+    window: the windows are centred on it for the NCC statistics only
+    (float32 cancellation in s2 - s1^2/n); the crops stay raw pixels."""
+    s = windows.shape[0]
+    win, tpl, band = ops.win, ops.tpl, ops.band
+    out_n = win - tpl + 1
+    windows_c = windows - mean
+
+    num = ops.corr(windows_c)
     s1 = band.T @ windows_c @ band
     s2 = band.T @ (windows_c * windows_c) @ band
     n = tpl * tpl
     var_n = torch.clamp(s2 - s1 * s1 / n, min=0.0)
-    denom = torch.sqrt(t_energy * var_n)
+    denom = torch.sqrt(ops.t_energy * var_n)
     safe = var_n > n * 1.0
     scores = torch.clamp(
         torch.where(safe, num / torch.where(safe, denom, torch.ones_like(denom)), 0.0),
@@ -82,49 +132,58 @@ def _frame_step(
     ly = torch.div(loc, out_n, rounding_mode="floor")
     lx = loc - ly * out_n
 
+    ar_tpl = torch.arange(tpl, device=windows.device, dtype=torch.int32)
+    streams = torch.arange(s, device=windows.device)[:, None, None]
     crop_rows = (ly[:, None] + ar_tpl)[:, :, None]
     crop_cols = (lx[:, None] + ar_tpl)[:, None, :]
     crops = windows[streams, crop_rows, crop_cols]  # (S, tpl, tpl)
+    lin = ops.lin
     ids, conf = fused_match(
         crops.reshape(s, -1), lin.m, lin.bias, lin.gallery_t, lin.gallery_norm
     )
+    return ids, conf, tm_conf, ly, lx
 
-    # Track: recentre the next window on the hit, clamped inside the frame.
+
+def _track(windows, mean, origin, frame_hw, ops: StepOperands):
+    """:func:`locate_and_match`, then the hit in frame coordinates and the
+    next origin: the window re-centred on the hit, clamped inside the frame."""
+    fh, fw = frame_hw
+    ids, conf, tm_conf, ly, lx = locate_and_match(windows, mean, ops)
     box_y = origin[:, 0] + ly
     box_x = origin[:, 1] + lx
-    pad = (win - tpl) // 2
+    pad = (ops.win - ops.tpl) // 2
     new_origin = torch.stack(
-        [(box_y - pad).clamp(0, fh - win), (box_x - pad).clamp(0, fw - win)], dim=1
+        [(box_y - pad).clamp(0, fh - ops.win), (box_x - pad).clamp(0, fw - ops.win)], dim=1
     ).to(torch.int32)
     return ids, conf, tm_conf, box_x, box_y, new_origin
 
 
 class MultiStreamRecognizer:
     """Stateful vectorized tracker+recognizer over S video streams, on the
-    device that holds ``model``'s buffers."""
+    device that holds ``model``'s buffers, or over ``mesh``'s ``data_axis``
+    devices (S must divide by their number)."""
 
-    def __init__(self, model, template: np.ndarray, window: int = 192):
+    def __init__(self, model, template: np.ndarray, window: int = 192,
+                 mesh: Optional[Mesh] = None, data_axis: str = "data"):
         tpl = int(template.shape[0])
         if template.shape[0] != template.shape[1]:
             raise ValueError("square templates only")
         if window <= tpl:
             raise ValueError("window must exceed template size")
         self.win, self.tpl = int(window), tpl
-        self.device = model.components.device
-        self.lin = linearize_model(model, (tpl, tpl))
-        self.labels = self.lin.labels
-        t0 = np.asarray(template, np.float32)
-        t0 = t0 - t0.mean()
-        self._t_energy = torch.tensor(
-            np.sum(t0 * t0, dtype=np.float64).astype(np.float32), device=self.device
-        )
-        out_n = self.win - tpl + 1
-        self._corr = make_circular_correlator(t0, self.win, out_n, self.device)
-        jj = np.arange(self.win)[:, None]
-        xx = np.arange(out_n)[None, :]
-        self._band = torch.from_numpy(
-            ((jj >= xx) & (jj < xx + tpl)).astype(np.float32)
-        ).to(self.device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = model.components.device
+            self._shards = [self.device]
+        else:
+            self.device = mesh.first_device
+            self._shards = mesh.axis_devices(data_axis)
+        lin = linearize_model(model, (tpl, tpl))
+        self._ops = {
+            device: step_operands(lin, template, self.win, device)
+            for device in dict.fromkeys([self.device, *self._shards])
+        }
+        self.labels = self._ops[self.device].lin.labels
 
     def init_state(self, num_streams: int, frame_hw: Tuple[int, int],
                    boxes: Optional[np.ndarray] = None) -> MultiStreamState:
@@ -151,16 +210,33 @@ class MultiStreamRecognizer:
         }
 
     def _step(self, frames: torch.Tensor, origin: torch.Tensor):
-        return _frame_step(
-            frames, origin, self.win, self.tpl, self._corr, self._band,
-            self._t_energy, self.lin,
-        )
+        frame_hw = frames.shape[1:]
+        if self.mesh is None:
+            windows = slice_windows(frames, origin, self.win)
+            return _track(windows, windows.mean(), origin, frame_hw, self._ops[self.device])
+        n = len(self._shards)
+        if frames.shape[0] % n:
+            raise ValueError(f"{frames.shape[0]} streams not divisible by data axis {n}")
+        origins = [o.to(d) for o, d in zip(torch.chunk(origin, n), self._shards)]
+        windows = [
+            slice_windows(f.to(d), o, self.win)
+            for f, o, d in zip(torch.chunk(frames, n), origins, self._shards)
+        ]
+        # The mean of every window of the step, taken as without a mesh.
+        mean = torch.cat([w.to(self.device) for w in windows]).mean()
+        shards = [
+            _track(w, mean.to(d), o, frame_hw, self._ops[d])
+            for w, o, d in zip(windows, origins, self._shards)
+        ]
+        return tuple(torch.cat([out.to(self.device) for out in outs]) for outs in zip(*shards))
 
     def process_batch(self, frames: torch.Tensor, state: MultiStreamState):
-        """frames (S, H, W) float32 on the model's device -> (results dict,
-        new state).  The results hold int32 ``gallery_row``, ``person_id``,
+        """frames (S, H, W) float32 on the model's device (with a mesh: on
+        any device; each chunk is moved to its shard) -> (results dict, new
+        state).  The results hold int32 ``gallery_row``, ``person_id``,
         ``x``, ``y`` and float32 ``confidence``, ``template_confidence``."""
-        ids, conf, tm_conf, bx, by, new_origin = self._step(frames, state.origin)
+        with exact_float32():
+            ids, conf, tm_conf, bx, by, new_origin = self._step(frames, state.origin)
         return self._results(ids, conf, tm_conf, bx, by), MultiStreamState(new_origin)
 
     def process_window(self, frames_ts: torch.Tensor, state: MultiStreamState):
@@ -171,8 +247,9 @@ class MultiStreamRecognizer:
         leading T axis."""
         origin = state.origin
         steps = []
-        for frames in frames_ts:
-            *outs, origin = self._step(frames, origin)
-            steps.append(outs)
+        with exact_float32():
+            for frames in frames_ts:
+                *outs, origin = self._step(frames, origin)
+                steps.append(outs)
         ids, conf, tm_conf, bx, by = (torch.stack(col) for col in zip(*steps))
         return self._results(ids, conf, tm_conf, bx, by), MultiStreamState(origin)

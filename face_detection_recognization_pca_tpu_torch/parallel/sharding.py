@@ -46,6 +46,26 @@ def _sum_in_order(parts: List[torch.Tensor], device: torch.device) -> torch.Tens
     return total
 
 
+def _shard_cosines(feats: torch.Tensor, shard: torch.Tensor) -> torch.Tensor:
+    """The ``(B, n)`` cosine matrix of the plain path.  For a float32 or
+    float64 gallery, :func:`..ops.similarity.cosine_gallery` in the wider
+    of the two dtypes.  For a bfloat16 gallery, the kernel's arithmetic
+    (see :func:`sharded_gallery_match`): the features rounded to bfloat16
+    for the dots, products and sums in float32, and float32 norms of the
+    unrounded features and of the rows as stored."""
+    dt = torch.promote_types(feats.dtype, shard.dtype)
+    rows = shard.to(dt)
+    if shard.dtype != torch.bfloat16:
+        return cosine_gallery(feats.to(dt), rows)
+    dots = feats.to(torch.bfloat16).to(dt) @ rows.T
+    denom = (
+        torch.linalg.vector_norm(feats.to(dt), dim=1, keepdim=True)
+        * torch.linalg.vector_norm(rows, dim=1)[None, :]
+    )
+    safe = denom > 0
+    return torch.where(safe, dots / torch.where(safe, denom, torch.ones_like(denom)), 0.0)
+
+
 def dp_recognize(
     mesh: Mesh,
     model: EigenfacesModel,
@@ -96,6 +116,23 @@ def sharded_gallery_match(
     only lose, are not materialised.  Without it, each shard is scored
     like the JAX package's plain path: the full cosine matrix with -inf
     on invalid rows.
+
+    **A bfloat16 gallery** is a storage format that halves the bytes
+    streamed per row.  Its semantics here, on both paths: the rows are
+    used as stored; the features are rounded to bfloat16 for the dot
+    products only, so that both operands feed the tensor cores as
+    bfloat16; products and sums are float32; and both norms are float32,
+    the features' taken before the rounding and the rows' from the stored
+    values.  The two paths then differ only in float32 rounding (the
+    kernel multiplies by reciprocal norms, the plain path divides by their
+    product), about 1e-7 on a cosine, so ``use_kernel`` changes an id only
+    between rows whose cosines are that close.  The JAX package rounds the
+    other way: it keeps the features in float32 and takes the row norms in
+    bfloat16, whose 8 bits of mantissa move a cosine by up to about 2e-3.
+    Against float64 arithmetic on the same stored rows the semantics here
+    are the closer of the two, and on random data the two packages name a
+    different row for about 1% of the probes
+    (``tests/test_torch_sharding.py`` pins the counts).
     """
     devices = mesh.axis_devices(model_axis)
     first = mesh.first_device
@@ -126,9 +163,7 @@ def sharded_gallery_match(
             idx, best = gallery_match(f, shard.T, gnorm, operand_dtype=shard.dtype)
             idx = idx.long()
         else:
-            dt = torch.promote_types(f.dtype, shard.dtype)
-            scores = cosine_gallery(f.to(dt), shard.to(dt))
-            scores = torch.where(valid[None, :], scores, float("-inf"))
+            scores = torch.where(valid[None, :], _shard_cosines(f, shard), float("-inf"))
             idx = torch.argmax(scores, dim=1)
             best = torch.gather(scores, 1, idx[:, None])[:, 0]
         bests.append(best)

@@ -26,7 +26,8 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,d,k,n,masked", [(64, 9216, 64, 256, 0), (5, 4099, 8, 33, 3)])
+@pytest.mark.parametrize("b,d,k,n,masked", [(64, 9216, 64, 256, 0), (5, 4099, 8, 33, 3),
+                                            (512, 9216, 64, 256, 0), (1, 9216, 64, 256, 0)])
 def test_kernel_matches_plain_on_card(cuda_device, b, d, k, n, masked):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     m = torch.randn(d, k, generator=g, device=cuda_device) / d ** 0.5
@@ -318,3 +319,85 @@ def test_gallery_kernel_element_fill_equals_16_byte_fill_on_card(cuda_device, dt
     atol = CONF_ATOL if dtype == torch.float32 else CONF_ATOL_BF16
     assert torch.equal(idx_a, idx_p)
     assert float((best_a - best_p).abs().max()) <= atol
+
+
+@pytest.mark.gpu
+def test_headline_on_card_under_a_tf32_caller(cuda_device):
+    """The headline at 4 x 4 frames of 480 x 640 on the card, called under
+    ``set_float32_matmul_precision("high")``: the self-check holds because
+    the step computes with TF32 off, the flags come back as the caller set
+    them, and the fused kernel was launched once per dispatch."""
+    from face_detection_recognization_pca_tpu_torch import bench, device
+
+    before = device.tf32_flags()
+    torch.set_float32_matmul_precision("high")
+    try:
+        result = bench.headline(streams=4, size=(480, 640), iters=2, warmup=1, t_frames=4,
+                                with_train=False, device=cuda_device)
+        after = device.tf32_flags()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before["matmul_allow_tf32"]
+        torch.backends.cudnn.allow_tf32 = before["cudnn_allow_tf32"]
+    detail = result["detail"]
+    assert after["matmul_allow_tf32"] is True
+    assert detail["self_check"] == "ok" and result["value"] > 0
+    assert result["unit"] == "frames/s/card" and detail["device"] != "cpu"
+    assert detail["fused_match_launches"] == 2 + 3 * 2 + 6  # first, warm-up, 3 windows, trace
+    assert detail["device_ms"] is None or detail["busy_share"] > 0
+
+
+@pytest.mark.gpu
+def test_tracked_scan_and_stream_mesh_on_card(cuda_device, tmp_path):
+    """``scan_batches_tracked`` on the card from a lock directory written
+    by the port: planted-exact, one kernel launch per frame.  Then the same
+    frames as 4 streams over a (4, 1) mesh of the one card against no mesh:
+    the same bits."""
+    import numpy as np
+
+    from face_detection_recognization_pca_tpu_torch import bench
+    from face_detection_recognization_pca_tpu_torch.io import artifacts, detection_json
+    from face_detection_recognization_pca_tpu_torch.io.video import VideoMeta
+    from face_detection_recognization_pca_tpu_torch.models import eigenfaces as ef
+    from face_detection_recognization_pca_tpu_torch.parallel import make_mesh
+    from face_detection_recognization_pca_tpu_torch.parallel.multistream import (
+        MultiStreamRecognizer,
+    )
+    from face_detection_recognization_pca_tpu_torch.pipeline.tracked_scan import (
+        scan_batches_tracked,
+    )
+
+    h, w, n = 480, 640, 8
+    frames, images, face, plants = bench.scan_assets(n, (h, w), 2)
+    model, aux = ef.train_v1(torch.from_numpy(images).to(cuda_device), n_components=16)
+    person_dir = tmp_path / "ann"
+    person_dir.mkdir()
+    artifacts.save_model_v1(ef.to_artifact(model, aux, person_name="ann"),
+                            str(person_dir / "face_model.pkl"))
+    y0, x0 = (int(v) for v in plants[0])
+    detection_json.write_detection_json(
+        detection_json.DetectionFile("v.mp4", n, 30.0, 1, "", [detection_json.DetectionRecord(
+            0, 0, 0.0, x0, y0, 96, 96, x0 + 48, y0 + 48, 96 * 96, "face_0.png", "face_0.png")]),
+        str(person_dir / "ann_faces_detection.json"))
+    before = tfm.fused_match.launches
+    records = scan_batches_tracked(
+        ((frames[i:i + 4], 4) for i in range(0, n, 4)), VideoMeta(w, h, 30.0, n), "ann",
+        lock_dir=str(tmp_path), template_full=face)
+    assert tfm.fused_match.launches == before + n
+    assert [(r["y"], r["x"]) for r in records] == [tuple(p) for p in plants.tolist()]
+    assert all(r["person_name"] == "ann" and r["confidence"] > 0.999 for r in records)
+
+    streams = torch.from_numpy(frames[:4]).to(cuda_device).float()
+    boxes = np.concatenate([plants[:4, ::-1], np.zeros((4, 2), np.int32)], axis=1)
+    plain = MultiStreamRecognizer(model, face.astype(np.float32))
+    meshed = MultiStreamRecognizer(model, face.astype(np.float32),
+                                   mesh=make_mesh(4, 1, devices=[cuda_device] * 4))
+    want, _ = plain.process_batch(streams, plain.init_state(4, (h, w), boxes))
+    got, _ = meshed.process_batch(streams, meshed.init_state(4, (h, w), boxes))
+    for key in want:
+        if key in ("confidence", "template_confidence"):
+            # One stream per shard: cuBLAS may pick another kernel for the
+            # DFT matmuls of a batch of one window.
+            assert float((got[key] - want[key]).abs().max()) <= CONF_ATOL, key
+        else:
+            assert torch.equal(got[key], want[key]), key
+    assert got["y"].tolist() == plants[:4, 0].tolist()

@@ -141,8 +141,11 @@ def test_preprocess_crops_match_jax(shape):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-3)
     one = tpre.preprocess_crop(torch.from_numpy(crops[1]), (20, 24))
     np.testing.assert_allclose(one.numpy(), got[1].numpy(), rtol=1e-6, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        tpre.preprocess_crops(torch.from_numpy(crops), (20, 24), exact=True)
+    # The exact path is whole uint8 steps near the float path (gray and
+    # resize each round once); tests/test_torch_resize_exact.py holds it
+    # against JAX bit for bit.
+    exact = tpre.preprocess_crops(torch.from_numpy(crops), (20, 24), exact=True)
+    assert torch.equal(exact, exact.round()) and float((exact - got).abs().max()) <= 1.5
 
 
 def _jax_model(schema, rng, d_side=16, n=18, k=7):

@@ -11,8 +11,10 @@ from face_detection_recognization_pca_tpu import bench as jbench
 from face_detection_recognization_pca_tpu.models import eigenfaces as jef
 from face_detection_recognization_pca_tpu.parallel import multistream as jms
 from face_detection_recognization_pca_tpu_torch import bench as tbench
+from face_detection_recognization_pca_tpu_torch import device as tdevice
 from face_detection_recognization_pca_tpu_torch.models import eigenfaces as tef
 from face_detection_recognization_pca_tpu_torch.ops import fused_match as tfm
+from face_detection_recognization_pca_tpu_torch.parallel import mesh as tmesh
 from face_detection_recognization_pca_tpu_torch.parallel import multistream as tms
 
 torch.set_num_threads(1)
@@ -206,3 +208,120 @@ def test_slice_is_planted_exact_at_a_small_size():
     wrong = plants.copy()
     wrong[1, 2, 0] += 1
     assert not tbench.planted_exact(wout, wrong)
+
+
+def _uneven_frames(face, rng, t):
+    """:func:`_frames` with stream i's noise level raised by 12 i, so the
+    window means differ per stream by far more than the NCC tolerates: a
+    mean taken per shard would change the scores."""
+    frames, plants = _frames(face, rng, t)
+    frames = frames + (12.0 * np.arange(S, dtype=np.float32))[:, None, None]
+    for i, (oy, ox) in enumerate(plants):
+        frames[i, oy : oy + TPL, ox : ox + TPL] = face
+    return frames, plants
+
+
+@pytest.mark.parametrize("data", [8, 4, 2])
+def test_mesh_gives_the_same_bits_as_no_mesh(setup, rng, data):
+    """S = 8 streams over a ``(data, 1)`` mesh of CPU devices, three frames
+    through ``process_window`` and one through ``process_batch``: every
+    result and the carried origins equal the no-mesh run bit for bit.
+
+    One exception, on the CPU only: with one stream per shard (data = 8)
+    the plain version of the fused kernel computes its projection as a
+    matrix-vector product, which sums in another order than the
+    matrix-matrix product of a larger batch, so ``confidence`` is held to
+    2 ulp of 1 there and to the same bits on the other meshes.  The
+    template scores, which the mean of the windows enters, are the same
+    bits on every mesh."""
+    face, _, _, tmodel = setup
+    frames = [_uneven_frames(face, rng, t) for t in range(3)]
+    stack = torch.from_numpy(np.stack([f for f, _ in frames]))
+    plain = tms.MultiStreamRecognizer(tmodel, face, window=WIN)
+    mesh = tmesh.make_mesh(data, 1, devices=["cpu"] * 8)
+    meshed = tms.MultiStreamRecognizer(tmodel, face, window=WIN, mesh=mesh)
+    assert meshed.device == torch.device("cpu")
+
+    # The windows' means differ per stream: what a per-shard mean would see.
+    windows = tms.slice_windows(stack[0], plain.init_state(S, (H, W)).origin, WIN)
+    per_stream = windows.mean(dim=(1, 2))
+    assert float(per_stream.max() - per_stream.min()) > 50
+
+    want, want_state = plain.process_window(stack, plain.init_state(S, (H, W)))
+    got, got_state = meshed.process_window(stack, meshed.init_state(S, (H, W)))
+    one_want, _ = plain.process_batch(stack[0], plain.init_state(S, (H, W)))
+    one_got, _ = meshed.process_batch(stack[0], meshed.init_state(S, (H, W)))
+    for w, g in ((want, got), (one_want, one_got)):
+        assert set(g) == set(w)
+        for key in w:
+            assert g[key].dtype == w[key].dtype and g[key].shape == w[key].shape, key
+            if key == "confidence" and data == S:
+                np.testing.assert_allclose(g[key].numpy(), w[key].numpy(), rtol=0, atol=2.4e-7)
+            else:
+                assert torch.equal(g[key], w[key]), key
+    assert torch.equal(got_state.origin, want_state.origin)
+    np.testing.assert_array_equal(got["x"].numpy(), np.stack([p[:, 1] for _, p in frames]))
+    np.testing.assert_array_equal(got["y"].numpy(), np.stack([p[:, 0] for _, p in frames]))
+
+    with pytest.raises(ValueError, match="not divisible"):
+        meshed.process_batch(stack[0, : S - 1], meshed.init_state(S - 1, (H, W)))
+
+
+def test_mesh_matches_jax_mesh(setup, rng):
+    """The JAX recognizer over its (8, 1) mesh of fake CPU devices against
+    the port's over its own, on the uneven frames."""
+    import jax
+
+    from face_detection_recognization_pca_tpu.parallel import mesh as jmesh
+
+    if len(jax.devices()) < 8:
+        pytest.skip("need 8 fake devices (xla_force_host_platform_device_count)")
+    face, _, jmodel, tmodel = setup
+    stack = np.stack([_uneven_frames(face, rng, t)[0] for t in range(2)])
+    jmsr = jms.MultiStreamRecognizer(
+        jmodel, face, window=WIN, mesh=jmesh.make_mesh(data=8, model=1, devices=jax.devices()[:8]))
+    tmsr = tms.MultiStreamRecognizer(tmodel, face, window=WIN,
+                                     mesh=tmesh.make_mesh(8, 1, devices=["cpu"] * 8))
+    jout, jstate = jmsr.process_window(jnp.asarray(stack), jmsr.init_state(S, (H, W)))
+    tout, tstate = tmsr.process_window(torch.from_numpy(stack), tmsr.init_state(S, (H, W)))
+    _assert_same(tout, jout)
+    np.testing.assert_array_equal(tstate.origin.numpy(), np.asarray(jstate.origin))
+
+
+@pytest.mark.parametrize("entry", ["process_batch", "process_window"])
+def test_steps_compute_in_full_float32_and_restore_the_flags(setup, rng, entry):
+    """A caller under ``set_float32_matmul_precision("high")``: inside the
+    step both TF32 switches are off, after it they are as the caller set
+    them, and the results are those of a caller who never touched them."""
+    face, _, _, tmodel = setup
+    frames = torch.from_numpy(_frames(face, rng, 0)[0])
+    frames = frames[None] if entry == "process_window" else frames
+    msr = tms.MultiStreamRecognizer(tmodel, face, window=WIN)
+    want, _ = getattr(msr, entry)(frames, msr.init_state(S, (H, W)))
+
+    seen = []
+    corr = msr._ops[msr.device].corr
+
+    def spy(windows):
+        seen.append(tdevice.tf32_flags())
+        return corr(windows)
+
+    msr._ops[msr.device] = msr._ops[msr.device]._replace(corr=spy)
+    before = tdevice.tf32_flags()
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        assert tdevice.tf32_flags() == {"matmul_allow_tf32": True, "cudnn_allow_tf32": True}
+        got, _ = getattr(msr, entry)(frames, msr.init_state(S, (H, W)))
+        after = tdevice.tf32_flags()
+        with pytest.raises(ZeroDivisionError), tdevice.exact_float32():
+            1 / 0
+        after_error = tdevice.tf32_flags()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before["matmul_allow_tf32"]
+        torch.backends.cudnn.allow_tf32 = before["cudnn_allow_tf32"]
+    assert seen == [{"matmul_allow_tf32": False, "cudnn_allow_tf32": False}]
+    assert after == after_error == {"matmul_allow_tf32": True, "cudnn_allow_tf32": True}
+    assert tdevice.tf32_flags() == before
+    for key in want:
+        assert torch.equal(got[key], want[key]), key

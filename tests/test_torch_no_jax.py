@@ -21,9 +21,12 @@ def _run(args, cwd, **env):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port and ``chip_smoke.py`` import with neither
+    JAX nor the JAX package loaded, and without OpenCV."""
     code = textwrap.dedent(
         """
         import importlib, pkgutil, sys
+        sys.modules["cv2"] = None  # as where OpenCV is not installed: imports raise
         import face_detection_recognization_pca_tpu_torch as port
         names = [port.__name__] + [
             m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")
@@ -41,7 +44,7 @@ def test_port_imports_no_jax():
     )
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 12  # every module was found and imported
+    assert int(proc.stdout.split()[-1]) >= 31  # every module was found and imported
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -147,6 +147,68 @@ def test_sharded_gallery_match_with_shards_of_padding_only(rng, devices8):
         np.testing.assert_array_equal(ids_t, [14, 10])
 
 
+def test_sharded_bf16_gallery_semantics_are_pinned(devices8):
+    """A bfloat16 gallery: B 256, k 128, N 4096, features and rows N(0, 1)
+    from seed 0, labels ``arange``, mesh (1, 8), threshold -2.
+
+    The port rounds the features to bfloat16 for the dots and keeps both
+    norms in float32; ``use_kernel`` True (on the CPU: the kernel's plain
+    twin) and False agree to float32 rounding.  Against float64 arithmetic
+    on the stored bfloat16 rows both name 255 of 256 probes the same; the
+    256th is a near-tie, its two best cosines 1e-4 apart, which the
+    features' rounding (about 5e-4 on a cosine) decides the other way.
+
+    The JAX package keeps float32 features and takes the row norms in
+    bfloat16 (``ops/similarity.py:40``), which moves a cosine by up to
+    1.5e-3: it agrees with float64 on 254 probes, and with the port on 253.
+    The three that differ between the packages are such near-ties; neither
+    package is changed for them."""
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((256, 128)).astype(np.float32)
+    gallery = rng.standard_normal((4096, 128)).astype(np.float32)
+    labels = np.arange(4096, dtype=np.int32)
+    g16 = torch.from_numpy(gallery).to(torch.bfloat16)
+    mesh = tmesh.make_mesh(1, 8, devices=CPU8)
+    launches = tgm.gallery_match.launches
+    ids_k, conf_k = tsh.sharded_gallery_match(mesh, torch.from_numpy(feats), g16,
+                                              torch.from_numpy(labels), -2.0, use_kernel=True)
+    ids_p, conf_p = tsh.sharded_gallery_match(mesh, torch.from_numpy(feats), g16,
+                                              torch.from_numpy(labels), -2.0, use_kernel=False)
+    assert tgm.gallery_match.launches == launches
+    assert conf_k.dtype == conf_p.dtype == torch.float32
+    # The two paths: equal ids, cosines within float32 rounding.
+    assert torch.equal(ids_k, ids_p)
+    np.testing.assert_allclose(conf_k.numpy(), conf_p.numpy(), rtol=0, atol=2.4e-7)
+
+    # Float64 on the bfloat16 rows as stored.
+    f64, g64 = feats.astype(np.float64), g16.double().numpy()
+    cos = f64 @ g64.T / np.outer(np.linalg.norm(f64, axis=1), np.linalg.norm(g64, axis=1))
+    ref_ids, ref_conf = cos.argmax(1), cos.max(1)
+    differ = np.nonzero(ids_p.numpy() != ref_ids)[0]
+    assert differ.tolist() == [35]
+    gap = cos[35, ref_ids[35]] - cos[35, ids_p[35]]
+    assert 0 < gap < 2e-4
+    assert np.abs(conf_p.numpy() - ref_conf).max() < 6e-4  # the features' bf16 rounding
+    # The dots' operands alone are rounded: with float64 arithmetic on the
+    # rounded features the ids are the port's, all 256.
+    fr = torch.from_numpy(feats).to(torch.bfloat16).double().numpy()
+    cos_r = fr @ g64.T / np.outer(np.linalg.norm(f64, axis=1), np.linalg.norm(g64, axis=1))
+    np.testing.assert_array_equal(ids_p.numpy(), cos_r.argmax(1))
+    np.testing.assert_allclose(conf_p.numpy(), cos_r.max(1), rtol=0, atol=1e-6)
+
+    # The JAX package on the same gallery.
+    ids_j, conf_j = jsh.sharded_gallery_match(
+        jmesh.make_mesh(data=1, model=8, devices=devices8), jnp.asarray(feats),
+        jnp.asarray(gallery).astype(jnp.bfloat16), jnp.asarray(labels), threshold=-2.0,
+        use_pallas=False)
+    ids_j, conf_j = np.asarray(ids_j), np.asarray(conf_j).astype(np.float64)
+    assert int((ids_j == ref_ids).sum()) == 254
+    assert int((ids_p.numpy() == ids_j).sum()) == 253
+    assert 1e-3 < np.abs(conf_j - ref_conf).max() < 2e-3
+    for b in np.nonzero(ids_p.numpy() != ids_j)[0]:
+        assert abs(cos[b, ids_p[b]] - cos[b, ids_j[b]]) < 2e-3
+
+
 def _toy_jax_model(rng, n=24, d=4096, k=12):
     x = rng.normal(120.0, 30.0, (n, d))
     model, _ = jef.train_v1(jnp.asarray(x), n_components=k)
