@@ -64,7 +64,29 @@ Phases, each printing a line:
    (``bench.scan_assets``, a face that drifts up to 3 px per frame) are
    fed in batches of 16.  Every record must hold the planted position and
    the enrolled person, with one ``fused_match`` launch per frame.  Its
-   frames/s include the host-to-device copy of every batch.
+   frames/s include the host-to-device copy of every batch;
+9. the full-frame template detector: ``bench.full_frame_detect``, batch
+   16, 8 templates of 128 x 128 for 4 persons at scales 0.8 / 1.0 / 1.2
+   (seed 3), the clean template planted at the centre, at 544p and at
+   1080p.  Every frame must give exactly one detection after NMS, the
+   planted box, above the threshold, and ``detect_parity`` on frame 0 must
+   name the same box.  It prints frames/s end to end and for the device
+   half alone, and the device ms per batch by kernel family
+   (``torch.profiler``: FFT, matmuls split into the resize and the banded
+   window sums by timing the resize alone, elementwise, reductions);
+10. the batched multi-model scan, without OpenCV or files:
+    ``bench.multimodel_scan_assets`` (4 persons, a ``train_v2`` model and
+    two templates each, trained on the card) and 64 uint8 BGR 1080p frames
+    in batches of 16 through ``scan_batches_multimodel``.  One record per
+    frame must hold the planted box and person with template confidence
+    above 0.7 and PCA confidence above 0.8, and the per-frame
+    ``scan_frames_multimodel`` must give the same records.  Then each
+    person's 16 admitted crops go through ``make_fused_recognizer`` of that
+    person's model at (128, 128), D = 16384: rows equal to
+    ``recognize_linearized``'s, confidence within 1e-5, one launch per
+    call.  It prints frames/s with the copies inside and the seconds per
+    stage, and times the kernel at D = 16384 beside plain, ``crops @ m``
+    and the bound (``d16384`` in the JSON line).
 
 The line before the last is a JSON object describing each kernel, with
 its time, its plain version's, ``library_ms``, its HMMA counts and
@@ -96,6 +118,7 @@ import numpy as np
 import torch
 
 from face_detection_recognization_pca_tpu_torch import bench, device as port_device
+from face_detection_recognization_pca_tpu_torch.detect.template import TemplateDetector
 from face_detection_recognization_pca_tpu_torch.io.artifacts import save_model_v1
 from face_detection_recognization_pca_tpu_torch.io.detection_json import (
     DetectionFile,
@@ -114,6 +137,7 @@ from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
     LinearizedModel,
     _fill16,
     fused_match,
+    make_fused_recognizer,
     recognize_linearized,
 )
 from face_detection_recognization_pca_tpu_torch.ops.gallery_match import (
@@ -130,6 +154,11 @@ from face_detection_recognization_pca_tpu_torch.parallel import (
 from face_detection_recognization_pca_tpu_torch.parallel.multistream import (
     MultiStreamRecognizer,
 )
+from face_detection_recognization_pca_tpu_torch.ops.resize import resize_bilinear
+from face_detection_recognization_pca_tpu_torch.pipeline.scan_app import (
+    scan_batches_multimodel,
+    scan_frames_multimodel,
+)
 from face_detection_recognization_pca_tpu_torch.pipeline.tracked_scan import (
     scan_batches_tracked,
 )
@@ -140,6 +169,8 @@ NEAR_TIE = 1e-5  # a differing id on random data: plain cosines this close
 STREAMS, BATCHES, SEED = 64, 8, 4
 HEADLINE_STREAMS, HEADLINE_BATCHES = 16, 32
 SCAN_FRAMES, SCAN_BATCH, SCAN_SEED, SCAN_PERSON = 256, 16, 7, "planted_person"
+DETECT_BATCH, DETECT_TEMPLATES, DETECT_SEED = 16, 8, 3
+MULTISCAN_FRAMES, MULTISCAN_BATCH, MULTISCAN_SEED, MULTISCAN_SIDE = 64, 16, 5, 128
 GALLERY_B, GALLERY_K, GALLERY_N, GALLERY_SEED = 1024, 128, 1_048_573, 9
 JAX_SHAPE_N = 131072  # the JAX package's per-chip target (bench_large_gallery)
 TRAIN_N, TRAIN_SIDE, TRAIN_K, TRAIN_SEED = 2048, 64, 128, 6
@@ -833,6 +864,168 @@ def phase_scan(dev, card: str) -> int:
     return launches
 
 
+def phase_detect(dev, card: str) -> None:
+    for size in ("544p", "1080p"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = bench.full_frame_detect(DETECT_BATCH, bench.SIZES[size], DETECT_TEMPLATES,
+                                         iters=5, seed=DETECT_SEED, device=dev)
+        y, x = result["plant"]
+        threshold = result["template_threshold"]
+        for i, dets in enumerate(result["detections"]):
+            check(len(dets) == 1, f"{size} frame {i}: {len(dets)} detections after NMS")
+            d = dets[0]
+            check((d.x, d.y, d.width, d.height) == (x, y, 128, 128),
+                  f"{size} frame {i}: box {(d.x, d.y, d.width, d.height)}, planted {(x, y)}")
+            check(d.confidence > threshold, f"{size} frame {i}: confidence {d.confidence}")
+        first = result["detections"][0][0]
+        parity = result["parity"]
+        check(len(parity) == 1 and (parity[0].x, parity[0].y, parity[0].width, parity[0].height)
+              == (first.x, first.y, first.width, first.height),
+              f"{size}: detect_parity names {parity}, detect_fused {first}")
+
+        # Device time per batch by kernel family, and the resize alone (it
+        # shares the matmul kernels with the banded window sums), on the
+        # same assets built once more.
+        frames, bank, _ = bench.full_frame_assets(DETECT_BATCH, bench.SIZES[size],
+                                                  DETECT_TEMPLATES, DETECT_SEED, dev)
+        det = TemplateDetector(bank)
+        meta, _ = det.detect_fused_device(frames)
+        rows = bench.traced_kernels(lambda: det.detect_fused_device(frames), 3)
+        check(bool(rows), f"{size}: torch.profiler saw the detector's kernels")
+        families = bench.kernel_families(rows)
+
+        def resize_all():
+            with port_device.exact_float32():
+                for m in meta:
+                    resize_bilinear(frames, (m.rw, m.rh))
+
+        resize_ms = bench.cuda_time_ms(resize_all, 5, 2)
+        families["matmul_resize"] = resize_ms
+        families["matmul_banded_sums"] = families.pop("matmul", 0.0) - resize_ms
+        top = [(name[:60], round(us / 1e3, 3)) for name, us, _ in rows[:6]]
+        print(f"[detect] {size} batch {DETECT_BATCH}, {DETECT_TEMPLATES} templates x "
+              f"{len(meta)} scales: one detection per frame at the planted box "
+              f"({x}, {y}, 128, 128), confidence {first.confidence:.6f}, parity confidence "
+              f"{parity[0].confidence:.6f}; end to end {result['fps']} frames/s "
+              f"({result['ms_per_batch']} ms per batch, best of 5), device half alone "
+              f"{result['device_fps']} frames/s ({result['device_ms_per_batch']} ms per batch, "
+              f"5 queued back to back); device ms per batch by kernel family (torch.profiler, "
+              f"resize by CUDA events) {json.dumps(families)} in "
+              f"{sum(c for _, _, c in rows):.0f} kernels, sum "
+              f"{sum(us for _, us, _ in rows) / 1e3:.3f} ms; longest kernels {top}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase "
+              f"{time.perf_counter() - t0:.2f} s; card {card}")
+        del result, det, frames, bank, meta
+        torch.cuda.empty_cache()
+
+
+def _same_scan_records(got, ref) -> bool:
+    """Equal ints and names, floats within ``CONF_ATOL``."""
+    if len(got) != len(ref):
+        return False
+    for a, b in zip(got, ref):
+        for key, value in a.items():
+            if isinstance(value, float):
+                if abs(value - b[key]) > CONF_ATOL:
+                    return False
+            elif value != b[key]:
+                return False
+    return True
+
+
+def phase_multiscan(dev, card: str) -> tuple:
+    h, w = bench.SIZES["1080p"]
+    side = MULTISCAN_SIDE
+    t0 = time.perf_counter()
+    frames, stack, bank, plants, names, models = bench.multimodel_scan_assets(
+        MULTISCAN_FRAMES, (h, w), MULTISCAN_SEED, dev, side=side)
+    print(f"[multiscan] {MULTISCAN_FRAMES} uint8 BGR frames {frames.shape[1:]} on the host "
+          f"({frames.nbytes / 1e6:.0f} MB), {len(names)} v2 models (k {stack.components.shape[1]}, "
+          f"{stack.gallery.shape[1]} rows) and {len(bank.entries)} templates on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def batches():
+        for i in range(0, MULTISCAN_FRAMES, MULTISCAN_BATCH):
+            yield frames[i:i + MULTISCAN_BATCH]
+
+    scan_batches_multimodel([frames[:MULTISCAN_BATCH]], stack, bank)  # warm-up: masks, FFT plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = scan_batches_multimodel(batches(), stack, bank)
+    seconds = time.perf_counter() - t0
+    timings = {}
+    timed = scan_batches_multimodel(batches(), stack, bank, timings=timings)
+    t0 = time.perf_counter()
+    per_frame = scan_frames_multimodel(iter(frames), stack, bank)
+    per_frame_seconds = time.perf_counter() - t0
+
+    check([r["frame_number"] for r in records] == list(range(MULTISCAN_FRAMES)),
+          f"one record per frame: {[r['frame_number'] for r in records]}")
+    for r, (y, x) in zip(records, plants):
+        i = r["frame_number"]
+        check((r["x"], r["y"], r["width"], r["height"]) == (x, y, side, side),
+              f"frame {i}: box {(r['x'], r['y'], r['width'], r['height'])}, planted {(x, y)}")
+        check(r["person_name"] == names[i % len(names)], f"frame {i}: named {r['person_name']}")
+        check(r["template_confidence"] > 0.7 and r["pca_confidence"] > 0.8,
+              f"frame {i}: template {r['template_confidence']}, pca {r['pca_confidence']}")
+    check(_same_scan_records(timed, records), "a timed run gives the same records")
+    check(_same_scan_records(per_frame, records), "the per-frame scan gives the same records")
+    print(f"[multiscan] one record per frame with the planted box and person over "
+          f"{MULTISCAN_FRAMES} frames in batches of {MULTISCAN_BATCH}, equal to the per-frame "
+          f"scan's; min template confidence {min(r['template_confidence'] for r in records):.6f}, "
+          f"min pca confidence {min(r['pca_confidence'] for r in records):.6f}; "
+          f"{MULTISCAN_FRAMES / seconds} frames/s batched with the host-to-device copy of every "
+          f"batch inside ({seconds / (MULTISCAN_FRAMES / MULTISCAN_BATCH) * 1e3} ms per batch, "
+          f"host clock), {MULTISCAN_FRAMES / per_frame_seconds} frames/s per frame; seconds per "
+          f"stage over the run, the card waited for after each: {json.dumps(timings)}; card "
+          f"{card}")
+
+    # The admitted crops of each person through the fused recognizer of that
+    # person's model: D = 128 * 128 = 16384, a shape no earlier path gives.
+    grays = torch.stack([
+        torch.from_numpy(frames[i, y:y + side, x:x + side, 0].copy())
+        for i, (y, x) in enumerate(plants)
+    ]).to(dev).to(torch.float32)
+    fused_match.launches = gallery_match.launches = 0
+    results = []
+    for p, model in enumerate(models):
+        fn, lin = make_fused_recognizer(model, (side, side))
+        results.append((lin, grays[p::len(models)], *fn(grays[p::len(models)])))
+    launches = fused_match.launches
+    check(launches == len(models), f"fused_match launched {launches} times, want {len(models)}")
+    check(gallery_match.launches == 0, "the scan does not use the gallery kernel")
+    max_err = 0.0
+    for p, (lin, crops, rows, conf) in enumerate(results):
+        rows_p, conf_p = recognize_linearized(lin, crops)
+        err = float((conf - conf_p).abs().max())
+        max_err = max(max_err, err)
+        check(torch.equal(rows, rows_p), f"person {p}: rows {rows.tolist()} vs {rows_p.tolist()}")
+        check(err <= CONF_ATOL, f"person {p}: conf error {err} > {CONF_ATOL}")
+        check(bool((rows == 0).all()) and float(conf.min()) > 0.999,
+              f"person {p}: the planted crop is gallery row 0: {rows.tolist()}, {conf.tolist()}")
+    lin, _, _, _ = results[0]
+    flat = grays.reshape(len(grays), -1).contiguous()
+    turns = bench.time_in_turns(
+        {"plain": lambda: recognize_linearized(lin, grays),
+         "kernel": lambda: fused_match(flat, lin.m, lin.bias, lin.gallery_t, lin.gallery_norm),
+         "library": lambda: flat @ lin.m},
+        ("plain", "kernel", "library", "library", "kernel", "plain"), loop_iters=50,
+        graph_calls=20)
+    mean = {clock: {name: sum(v) / len(v) for name, v in t.items()} for clock, t in turns.items()}
+    (b, d), (k, n) = flat.shape, lin.gallery_t.shape
+    bnd = fused_bound(b, d, k, n)
+    d16384 = {"shape": f"B={b} D={d} k={k} N={n}", "max_abs_err": max_err,
+              "ms": mean["device"]["kernel"], "event_loop_ms": mean["loop"]["kernel"],
+              "plain_ms": mean["device"]["plain"], "plain_event_loop_ms": mean["loop"]["plain"],
+              "library_ms": mean["loop"]["library"], "library_device_ms": mean["device"]["library"],
+              **bnd, "share": bnd["bound_ms"] / mean["device"]["kernel"]}
+    print(f"[multiscan] make_fused_recognizer at (128, 128): {launches} launches, rows equal to "
+          f"recognize_linearized's, max|dconf| {max_err:.3g}; mean ms per call at "
+          f"{json.dumps(d16384)}; card {card}")
+    return launches, d16384
+
+
 def main() -> int:
     dev = phase_environment()
     card = torch.cuda.get_device_name(0)
@@ -847,9 +1040,12 @@ def main() -> int:
     by_path = {"tracker": fused_launches, "headline": phase_headline(dev, card)}
     torch.cuda.empty_cache()
     by_path["scan"] = phase_scan(dev, card)
+    torch.cuda.empty_cache()
+    phase_detect(dev, card)
+    by_path["multiscan"], d16384 = phase_multiscan(dev, card)
     print(json.dumps({"kernels": [
         {**KERNELS["fused_match"], "launches": sum(by_path.values()),
-         "launches_by_path": by_path, **fused, "hmma": hmma["fused_match"]},
+         "launches_by_path": by_path, **fused, "d16384": d16384, "hmma": hmma["fused_match"]},
         {**KERNELS["gallery_match"], "launches": gallery_launches, **gallery,
          "n_1048573": n1m, "hmma": hmma["gallery_match"]},
     ]}))

@@ -18,7 +18,11 @@ tracked scan of a video file (:mod:`.pipeline.tracked_scan`) with the
 model files, detection JSONs, config and video I/O it reads (:mod:`.io`,
 :mod:`.config`) and OpenCV's exact 8-bit resize (:mod:`.ops.resize`); and
 the self-checking workloads (:mod:`.bench`), the headline frames per
-second per card among them.
+second per card among them; the template detectors, full frame and
+guided (:mod:`.detect`, on :mod:`.ops.match`, :mod:`.ops.integral` and
+:mod:`.ops.nms`), the multi-model recognizer and the fusion rules
+(:mod:`.recognize`), and the guided and multi-model scans
+(:mod:`.pipeline.scan_app`).
 """
 
 __version__ = "0.1.0"

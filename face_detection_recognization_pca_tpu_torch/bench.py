@@ -21,6 +21,15 @@ The large gallery (``bench_large_gallery``): probes that are noisy
 copies of planted rows of a random gallery of up to a million rows
 (:func:`large_gallery_assets`), matched by the streaming gallery kernel
 and by its plain version (:func:`large_gallery`).
+
+The full-frame detector (``bench_full_frame_detect``): every template at
+every scale over the whole frame, a clean template planted at the centre
+(:func:`full_frame_assets`, :func:`full_frame_detect`).
+
+The multi-model scan: persons with distinct faces, a v2 model and two
+templates each, planted in turn into uint8 BGR frames
+(:func:`multimodel_scan_assets`), for
+:func:`..pipeline.scan_app.scan_batches_multimodel`.
 """
 
 from __future__ import annotations
@@ -31,9 +40,13 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from face_detection_recognization_pca_tpu_torch.device import exact_float32, require_cuda
+from face_detection_recognization_pca_tpu_torch.device import exact_float32, resolve_device
 from face_detection_recognization_pca_tpu_torch.linalg.pca import snapshot_pca
-from face_detection_recognization_pca_tpu_torch.models.eigenfaces import train_v1
+from face_detection_recognization_pca_tpu_torch.models.eigenfaces import (
+    to_artifact,
+    train_v1,
+    train_v2,
+)
 from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
     fused_match,
     linearize_model,
@@ -42,6 +55,7 @@ from face_detection_recognization_pca_tpu_torch.ops.gallery_match import (
     _gallery_match_plain,
     gallery_match,
 )
+from face_detection_recognization_pca_tpu_torch.ops.preprocess import preprocess_crops
 from face_detection_recognization_pca_tpu_torch.parallel.multistream import (
     StepOperands,
     locate_and_match,
@@ -371,6 +385,25 @@ def traced_kernels(fn: Callable[[], object], calls: int) -> list:
     return [(key, us / calls, count / calls) for key, us, count in device_kernels(prof) if us > 0]
 
 
+def kernel_families(rows: Sequence[Tuple[str, float, float]]) -> Dict[str, float]:
+    """Device ms per family of GPU kernels, from :func:`traced_kernels`
+    rows, by name: cuFFT's (``fft``), GEMMs (``matmul``), reductions,
+    elementwise kernels, copies, and the rest."""
+    words = (
+        ("fft", ("fft",)),
+        ("matmul", ("gemm", "cutlass", "xmma", "cublas")),
+        ("reduce", ("reduce",)),
+        ("elementwise", ("elementwise", "vectorized")),
+        ("copy", ("memcpy", "memset", "copy")),
+    )
+    out: Dict[str, float] = {}
+    for name, us, _ in rows:
+        low = name.lower()
+        family = next((fam for fam, keys in words if any(k in low for k in keys)), "other")
+        out[family] = out.get(family, 0.0) + us / 1e3
+    return out
+
+
 def profiler_ms(fn: Callable[[], object], calls: int = 50) -> Union[float, None]:
     """Kernel time per call of ``fn`` summed by ``torch.profiler`` over
     ``calls`` eager calls, or None when the trace holds no device time."""
@@ -480,7 +513,7 @@ def headline(
     launches of the fused kernel.  The secondary: ``snapshot_pca`` of 969 x
     4096 float32 at k = 100 (the reference's multi-person scale), second
     call, synchronised."""
-    device = require_cuda() if device is None else torch.device(device)
+    device = resolve_device(device)
     launches0 = fused_match.launches
     frames, (win_y, win_x), model, face, offs = headline_assets(
         streams, size, device, win=win, tpl=tpl, t_frames=t_frames
@@ -553,3 +586,166 @@ def headline(
             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         },
     }
+
+
+def full_frame_assets(
+    batch: int, size: Tuple[int, int], n_templates: int, seed: int, device: torch.device
+):
+    """``(frames, bank, plant)`` for the full-frame detector.
+
+    ``bank``: ``n_templates`` templates of 128 x 128 for persons
+    ``p0``..``p3`` in turn, each the clean structured template plus
+    N(0, 6) noise from ``np.random.default_rng(seed)`` (the JAX package's
+    order of draws, so the banks are equal).  ``frames``: (batch, H, W)
+    float32 on ``device``, noise ``110 + 25 N(0, 1)`` from a seeded
+    ``torch.Generator`` there, with the clean template written at
+    ``plant`` = (y, x) = ``(h // 2 - 64, w // 2 - 64)``."""
+    from face_detection_recognization_pca_tpu_torch.detect.template import TemplateBank
+
+    h, w = size
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:128, 0:128].astype(np.float32) / 128
+    tpl = (140 + 60 * np.sin(6.28 * yy * 2.1) + 40 * np.cos(6.28 * xx * 1.7)).astype(np.float32)
+    templates = [
+        (f"p{i % 4}", np.clip(tpl + rng.normal(0, 6, tpl.shape), 0, 255).astype(np.uint8))
+        for i in range(n_templates)
+    ]
+    bank = TemplateBank(templates, canonical_size=(128, 128), device=device)
+    plant = (h // 2 - 64, w // 2 - 64)
+    plants = np.tile(np.array(plant, np.int32), (batch, 1))
+    return _noise_frames(batch, size, tpl, plants, seed, device), bank, plant
+
+
+def full_frame_detect(
+    batch: int = 16,
+    size: Tuple[int, int] = SIZES["544p"],
+    n_templates: int = 8,
+    iters: int = 5,
+    seed: int = 3,
+    device: Optional[torch.device] = None,
+) -> Dict[str, object]:
+    """Full-frame fused-NCC detection throughput (port of
+    ``bench_full_frame_detect``): every template x scale over the WHOLE
+    frame of :func:`full_frame_assets`.  ``device=None`` means the CUDA
+    device.
+
+    Two clocks.  ``fps``: :meth:`TemplateDetector.detect_fused_batch` end
+    to end (device work, one download, host box selection), best of
+    ``iters``.  ``device_fps``: ``iters`` device halves queued back to
+    back and waited for once -- what a consumer that overlaps the
+    download and the selection with the next batch pays.  ``detections``
+    is the last end-to-end call's result, ``parity`` is
+    :meth:`TemplateDetector.detect_parity` on frame 0, ``plant`` the
+    planted (y, x) and ``template_threshold`` the detector's gate."""
+    from face_detection_recognization_pca_tpu_torch.detect.template import TemplateDetector
+
+    device = resolve_device(device)
+    frames, bank, plant = full_frame_assets(batch, size, n_templates, seed, device)
+    det = TemplateDetector(bank)
+    out = det.detect_fused_batch(frames)  # warm-up: masks, FFT plans
+    dt = float("inf")
+    for _ in range(iters):
+        _synchronize(device)
+        t0 = time.perf_counter()
+        out = det.detect_fused_batch(frames)
+        dt = min(dt, time.perf_counter() - t0)
+
+    _synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        det.detect_fused_device(frames)
+    _synchronize(device)
+    dt_dev = (time.perf_counter() - t0) / iters
+    return {
+        "fps": batch / dt,
+        "ms_per_batch": dt * 1e3,
+        "device_fps": batch / dt_dev,
+        "device_ms_per_batch": dt_dev * 1e3,
+        "size": tuple(size),
+        "batch": batch,
+        "templates": n_templates,
+        "detected": sum(1 for d in out if d),
+        "detections": out,
+        "parity": det.detect_parity(frames[0]),
+        "plant": plant,
+        "template_threshold": det.config.template_threshold,
+    }
+
+
+def _person_face(person: int, side: int) -> np.ndarray:
+    """A structured (side, side) uint8 face whose stripes differ per
+    person in frequency and direction, so two persons' faces correlate
+    weakly."""
+    yy, xx = np.mgrid[0:side, 0:side].astype(np.float32) / side
+    fy, fx = 1.3 + 0.9 * person, 4.1 - 0.8 * person
+    face = 128 + 55 * np.sin(6.28 * (fy * yy + 0.3 * person * xx)) + 45 * np.cos(6.28 * fx * xx)
+    return np.clip(np.rint(face), 0, 255).astype(np.uint8)
+
+
+def multimodel_scan_assets(
+    n_frames: int,
+    size: Tuple[int, int],
+    seed: int,
+    device: torch.device,
+    persons: int = 4,
+    side: int = 128,
+    gallery_n: int = GALLERY_N,
+    k: int = N_COMPONENTS,
+    face_shape: Tuple[int, int] = (64, 64),
+    step: int = 3,
+):
+    """``(frames, stack, bank, plants, names, models)`` for the
+    multi-model scan, everything from ``np.random.default_rng(seed)``.
+
+    ``persons`` persons ``person0``.. with :func:`_person_face` faces of
+    ``side`` x ``side``.  Each gets a :func:`train_v2` model trained on
+    ``device`` (``face_shape``, ``k`` components, ``gallery_n`` training
+    rows: row 0 the face exactly as the scan's preprocessing resizes it,
+    the rest copies rolled by up to 2 px with N(0, 4) noise) and two
+    templates (the face plus N(0, 6) noise), gathered into ``stack``
+    (:class:`ModelStack`) and ``bank`` (:class:`TemplateBank`) with no
+    file in between.  ``models`` are the persons' ``EigenfacesModel`` s.
+
+    ``frames``: (n_frames, H, W, 3) uint8 BGR numpy, as a decoder hands
+    them over: uniform noise in [60, 160] with person ``i % persons``'s
+    face written gray (B = G = R) into frame i at ``plants[i]`` = (y, x).
+    The position starts inside the frame and drifts by up to ``step`` px
+    per frame inside the region that the detector's border strips (5% of
+    each side) and corner squares (15%) leave clear."""
+    from face_detection_recognization_pca_tpu_torch.detect.template import TemplateBank
+    from face_detection_recognization_pca_tpu_torch.recognize.engine import ModelStack
+
+    h, w = size
+    rng = np.random.default_rng(seed)
+    names = [f"person{p}" for p in range(persons)]
+    faces = [_person_face(p, side) for p in range(persons)]
+    artifacts, templates, models = [], [], []
+    fh, fw = face_shape
+    for name, face in zip(names, faces):
+        bgr = torch.from_numpy(np.repeat(face[None, :, :, None], 3, axis=3)).to(device)
+        row0 = preprocess_crops(bgr, (fw, fh))[0].cpu().numpy().reshape(fh, fw)
+        images = torch.from_numpy(_gallery_images(rng, row0, gallery_n)).to(device)
+        labels = torch.zeros(gallery_n, dtype=torch.int32, device=device)
+        model, aux = train_v2(images, labels, n_components=k, face_shape=face_shape)
+        models.append(model)
+        artifacts.append(
+            (name, to_artifact(model, aux, person_id_map={name: 0}, person_name=name))
+        )
+        for _ in range(2):
+            noisy = np.clip(face + rng.normal(0, 6, face.shape), 0, 255).astype(np.uint8)
+            templates.append((name, noisy))
+    stack = ModelStack.build(artifacts, device=device)
+    bank = TemplateBank(templates, canonical_size=(side, side), device=device)
+
+    lo = np.array([h * 0.2, w * 0.2]).astype(np.int64)
+    hi = np.array([h * 0.8, w * 0.8]).astype(np.int64) - side
+    pos = rng.integers(lo, hi + 1)
+    drift = rng.integers(-step, step + 1, (n_frames, 2))
+    plants = np.zeros((n_frames, 2), np.int32)
+    for i in range(n_frames):
+        plants[i] = pos
+        pos = np.clip(pos + drift[i], lo, hi)
+    frames = rng.integers(60, 161, (n_frames, h, w, 3), dtype=np.uint8)
+    for i, (y, x) in enumerate(plants):
+        frames[i, y:y + side, x:x + side] = faces[i % persons][:, :, None]
+    return frames, stack, bank, plants, names, models

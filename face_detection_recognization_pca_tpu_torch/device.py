@@ -14,7 +14,7 @@ calls :func:`disable_tf32` and checks :func:`tf32_flags`.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional, Union
 
 import torch
 
@@ -24,6 +24,12 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available to PyTorch")
     return torch.device("cuda")
+
+
+def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
+    """The device an entry point computes on: the CUDA device for ``None``
+    (:func:`require_cuda`), else the caller's, as the CPU tests pass."""
+    return require_cuda() if device is None else torch.device(device)
 
 
 def tf32_flags() -> Dict[str, bool]:

@@ -18,9 +18,10 @@ import torch
 from torch import nn
 
 from face_detection_recognization_pca_tpu_torch.io.artifacts import EigenfacesArtifact
-from face_detection_recognization_pca_tpu_torch.linalg.pca import snapshot_pca
+from face_detection_recognization_pca_tpu_torch.linalg.pca import scaled_pca, snapshot_pca
 from face_detection_recognization_pca_tpu_torch.linalg.standardize import (
     ScalerParams,
+    scaler_fit,
     scaler_transform,
 )
 from face_detection_recognization_pca_tpu_torch.ops.preprocess import preprocess_crops
@@ -94,6 +95,35 @@ def train_v1(
         labels=torch.zeros(n, dtype=torch.int32, device=images.device),
         face_shape=(side, side),
         schema="v1",
+    )
+    aux = {
+        "eigenvalues": res.eigenvalues,
+        "explained_variance_ratio": res.explained_variance_ratio,
+    }
+    return model, aux
+
+
+def train_v2(
+    images: torch.Tensor,
+    labels: torch.Tensor,
+    n_components: int = 50,
+    face_shape: Tuple[int, int] = (64, 64),
+) -> Tuple[EigenfacesModel, dict]:
+    """v2 training: z-score, then sklearn-parity PCA, on ``(n, d)`` crops
+    already resized to ``face_shape`` and flattened, with ``(n,)`` integer
+    person ids.  Returns ``(model, aux)`` like :func:`train_v1`."""
+    scaler = scaler_fit(images)
+    res = scaled_pca(scaler_transform(images, scaler), n_components)
+    model = EigenfacesModel(
+        components=res.components,
+        projection_mean=res.mean,
+        mean_face=images.mean(dim=0),
+        gallery=res.projected,
+        labels=labels.to(torch.int32),
+        scaler_mean=scaler.mean,
+        scaler_scale=scaler.scale,
+        face_shape=tuple(face_shape),
+        schema="v2",
     )
     aux = {
         "eigenvalues": res.eigenvalues,

@@ -69,3 +69,55 @@ def make_circular_correlator(
         return (lr @ c_out.T - li @ s_out.T) * inv_n2
 
     return corr
+
+
+def dft_correlate_valid(
+    frames: torch.Tensor,  # (B, H, W) real
+    kernels: torch.Tensor,  # (T, th, tw) real, th <= H, tw <= W
+    out_h: int,
+    out_w: int,
+) -> torch.Tensor:
+    """Valid 2-D cross-correlation of a frame batch with T kernels as
+    dense DFT matmuls: ``(B, T, out_h, out_w)``.
+
+    Circular correlation at the frame's own size is alias-free for all
+    valid shifts (``out_h <= H - th + 1`` rows never see wraparound), so
+    nothing is padded.  This is the full-frame form of
+    :func:`make_circular_correlator`; the kernel spectra are computed on
+    the frames' device with the same matrices, because a template bank is
+    data, not a constant.  The template detector of this package takes
+    the ``rfft2`` route instead (:mod:`..detect.template`); this function
+    is kept as the same operation in matmuls, and runs them in full
+    float32."""
+    from face_detection_recognization_pca_tpu_torch.device import exact_float32
+
+    f = frames.to(torch.float32)
+    b, h, w = f.shape
+    t, th, tw = kernels.shape
+    assert out_h <= h - th + 1 and out_w <= w - tw + 1
+
+    def dev(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(f.device)
+
+    ch, sh, ch_o, sh_o = (dev(a) for a in _dft_mats_np(h, out_h))
+    cw, sw, cw_o, sw_o = (dev(a) for a in _dft_mats_np(w, out_w))
+    kpad = torch.zeros((t, h, w), dtype=torch.float32, device=f.device)
+    kpad[:, :th, :tw] = kernels.to(torch.float32)
+
+    def fwd(x):  # real (N, h, w) -> (Fr, Fi) under D = C - iS per axis
+        p = ch @ x
+        q = sh @ x
+        return p @ cw.T - q @ sw.T, -(p @ sw.T + q @ cw.T)
+
+    with exact_float32():
+        fr, fi = fwd(f)  # (B, h, w)
+        kr, ki = fwd(kpad)  # (T, h, w)
+        # Y = F . conj(K) over the (B, T) outer product.
+        yr = (fr[:, None] * kr[None] + fi[:, None] * ki[None]).reshape(b * t, h, w)
+        yi = (fi[:, None] * kr[None] - fr[:, None] * ki[None]).reshape(b * t, h, w)
+        # Inverse truncated to the valid rows and columns:
+        # Re((C + iS) Y (C + iS)^T) / (h w).
+        lr = ch_o @ yr - sh_o @ yi
+        li = ch_o @ yi + sh_o @ yr
+        out = lr @ cw_o.T - li @ sw_o.T
+    return out.reshape(b, t, out_h, out_w) / (h * w)

@@ -263,3 +263,21 @@ def fused_match(
 
 
 fused_match.launches = 0
+
+
+def make_fused_recognizer(model, crop_shape: Tuple[int, int]):
+    """Bind a model and a crop shape to :func:`fused_match`.
+
+    Returns ``(fn, lin)``: ``fn(crops (B, ch, cw)) -> (gallery_rows int32
+    (B,), cosine (B,))`` and the :class:`LinearizedModel` it closes over.
+    The kernel takes any B, D, k and N, so nothing is padded: the rows
+    returned index the model's gallery as it is, and a gallery row of zero
+    norm scores 0 and so never wins over a positive score.  On a CUDA
+    model each call of ``fn`` is one kernel launch."""
+    lin = linearize_model(model, crop_shape)
+
+    def fn(crops: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        flat = crops.reshape(crops.shape[0], -1).to(torch.float32).contiguous()
+        return fused_match(flat, lin.m, lin.bias, lin.gallery_t, lin.gallery_norm)
+
+    return fn, lin

@@ -99,9 +99,14 @@ def _interp_matrix(src: int, dst: int, dtype) -> np.ndarray:
     return m.astype(dtype)
 
 
-@functools.lru_cache(maxsize=256)
-def _interp_matrices(sh: int, sw: int, dh: int, dw: int):
-    return _interp_matrix(sh, dh, np.float64), _interp_matrix(sw, dw, np.float64).T
+@functools.lru_cache(maxsize=64)
+def _interp_matrices(sh: int, sw: int, dh: int, dw: int, device: torch.device, dtype: torch.dtype):
+    """``(Wy (dh, sh), Wx^T (sw, dw))`` on ``device``, built and copied over
+    once per geometry: at full-frame sizes the pair is tens of MB, and a
+    copy from pageable memory on every call stalls the caller."""
+    wy = _interp_matrix(sh, dh, np.float64)
+    wxt = _interp_matrix(sw, dw, np.float64).T
+    return torch.from_numpy(wy).to(device, dtype), torch.from_numpy(wxt).to(device, dtype)
 
 
 def resize_bilinear(
@@ -112,7 +117,5 @@ def resize_bilinear(
     The matrices are rounded from float64 to ``dtype`` once, as the JAX
     package's ``_interp_matrix(..., dtype)`` rounds them."""
     dw, dh = int(dsize[0]), int(dsize[1])
-    wy, wxt = _interp_matrices(img.shape[-2], img.shape[-1], dh, dw)
-    wy = torch.from_numpy(wy).to(img.device, dtype)
-    wxt = torch.from_numpy(wxt).to(img.device, dtype)
+    wy, wxt = _interp_matrices(img.shape[-2], img.shape[-1], dh, dw, img.device, dtype)
     return wy @ img.to(dtype) @ wxt

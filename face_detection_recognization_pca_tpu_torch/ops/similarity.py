@@ -1,11 +1,20 @@
-"""Gallery cosine with zero-norm guard, and argmax-with-threshold
-(port of ``ops/similarity.py``)."""
+"""Cosine with zero-norm guard, all-pairs gallery cosine and L2, and
+argmax-with-threshold (port of ``ops/similarity.py``)."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+
+def cosine_similarity(a: torch.Tensor, b: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Cosine similarity along the last axis; 0 where the product of the
+    norms is not above ``eps``."""
+    dot = (a * b).sum(dim=-1)
+    denom = torch.linalg.vector_norm(a, dim=-1) * torch.linalg.vector_norm(b, dim=-1)
+    safe = denom > eps
+    return torch.where(safe, dot / torch.where(safe, denom, torch.ones_like(denom)), 0.0)
 
 
 def cosine_gallery(probes: torch.Tensor, gallery: torch.Tensor) -> torch.Tensor:
@@ -17,6 +26,14 @@ def cosine_gallery(probes: torch.Tensor, gallery: torch.Tensor) -> torch.Tensor:
     )
     safe = denom > 0
     return torch.where(safe, dots / torch.where(safe, denom, torch.ones_like(denom)), 0.0)
+
+
+def euclidean_gallery(probes: torch.Tensor, gallery: torch.Tensor) -> torch.Tensor:
+    """``(B, N)`` L2 distances by ``|a|^2 - 2ab + |b|^2``, clipped at 0
+    before the root."""
+    p2 = (probes * probes).sum(dim=-1, keepdim=True)
+    g2 = (gallery * gallery).sum(dim=-1, keepdim=True).T
+    return torch.sqrt(torch.clamp(p2 - 2.0 * (probes @ gallery.T) + g2, min=0.0))
 
 
 def best_match(

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from face_detection_recognization_pca_tpu_torch.config import PipelineConfig
-from face_detection_recognization_pca_tpu_torch.device import require_cuda
+from face_detection_recognization_pca_tpu_torch.device import resolve_device
 from face_detection_recognization_pca_tpu_torch.io.artifacts import load_model
 from face_detection_recognization_pca_tpu_torch.io.detection_json import (
     read_detection_json,
@@ -77,7 +77,7 @@ def scan_batches_tracked(
     ``device=None`` means the CUDA device; ``video_path`` is only written
     into ``output_json``.  Returns guided-scanner-style records."""
     cfg = config or PipelineConfig()
-    device = require_cuda() if device is None else torch.device(device)
+    device = resolve_device(device)
     lock = lock_dir or cfg.paths.lock_dir
     person_dir = os.path.join(lock, person_name)
     art = load_model(os.path.join(person_dir, "face_model.pkl"))

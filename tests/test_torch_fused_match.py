@@ -282,3 +282,39 @@ def test_wrapper_picks_the_fill_and_sizes_grid_and_scratch(b, d, k, n, fill16):
     assert tfm._scratch_shape(b, d, k) == (x // tfm._CLUSTER, b, k)
     if (b, d, k) == (64, 9216, 64):  # the tracker: 96 blocks in 12 clusters, all resident
         assert (x, y, z) == (96, 1, 1)
+
+
+@pytest.mark.parametrize("scaled,crop_shape", [(False, (19, 15)), (True, (21, 13))])
+def test_make_fused_recognizer_matches_jax_interpret(scaled, crop_shape):
+    """D = 285 and 273 are no multiples of 128 (the JAX side pads D, k and N
+    for its lanes; the port pads nothing), B = 11, k = 8, N = 40."""
+    jmodel, tmodel, _ = _models(31, scaled=scaled)
+    rng = np.random.default_rng(32)
+    crops = rng.uniform(0, 255, (11, *crop_shape)).astype(np.float32)
+    jfn, jlin = jpk.make_fused_recognizer(jmodel, crop_shape, interpret=True)
+    tfn, tlin = tfm.make_fused_recognizer(tmodel, crop_shape)
+    assert tlin.crop_shape == jlin.crop_shape == crop_shape
+    np.testing.assert_allclose(tlin.m.numpy(), np.asarray(jlin.m), atol=1e-6)
+    rows_ref, conf_ref = (np.asarray(a) for a in jfn(jnp.asarray(crops)))
+    rows, conf = tfn(torch.from_numpy(crops))
+    assert rows.shape == conf.shape == (11,) and rows.dtype == torch.int32
+    np.testing.assert_array_equal(rows.numpy(), rows_ref)  # gallery rows, unpadded
+    np.testing.assert_allclose(conf.numpy(), conf_ref, atol=CONF_ATOL)
+    plain_rows, plain_conf = tfm.recognize_linearized(tlin, torch.from_numpy(crops))
+    np.testing.assert_array_equal(rows.numpy(), plain_rows.numpy())
+    np.testing.assert_array_equal(conf.numpy(), plain_conf.numpy())
+
+
+def test_make_fused_recognizer_zero_norm_row_never_beats_a_positive_score():
+    jmodel, tmodel, train = _models(33)
+    gallery = np.asarray(jmodel.gallery).copy()
+    gallery[0] = 0.0  # a zero-norm row scores 0
+    tmodel.gallery.copy_(torch.from_numpy(gallery))
+    crops = train[:5].reshape(5, 12, 12)
+    rows, conf = tfm.make_fused_recognizer(tmodel, (12, 12))[0](torch.from_numpy(crops))
+    jrows, jconf = jpk.make_fused_recognizer(
+        jmodel.replace(gallery=jnp.asarray(gallery)), (12, 12), interpret=True
+    )[0](jnp.asarray(crops))
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
+    np.testing.assert_allclose(conf.numpy(), np.asarray(jconf), atol=CONF_ATOL)
+    assert (rows != 0).all() and (conf > 0).all()

@@ -401,3 +401,124 @@ def test_tracked_scan_and_stream_mesh_on_card(cuda_device, tmp_path):
         else:
             assert torch.equal(got[key], want[key]), key
     assert got["y"].tolist() == plants[:4, 0].tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_detect_fused_batch_on_card_equals_the_cpu(cuda_device, precision):
+    """The full-frame detector on the card names the CPU's boxes, also when
+    the caller has turned TF32 matmuls on: the resize and the banded window
+    sums run under ``exact_float32``."""
+    from face_detection_recognization_pca_tpu_torch import bench
+    from face_detection_recognization_pca_tpu_torch.detect.template import TemplateDetector
+
+    size, batch = (272, 480), 3
+    frames_c, bank_c, (y, x) = bench.full_frame_assets(batch, size, 4, 3, torch.device("cpu"))
+    _, bank_g, _ = bench.full_frame_assets(batch, size, 4, 3, cuda_device)
+    want = TemplateDetector(bank_c).detect_fused_batch(frames_c)
+    from face_detection_recognization_pca_tpu_torch import device
+
+    before = device.tf32_flags()
+    torch.set_float32_matmul_precision(precision)
+    try:
+        det = TemplateDetector(bank_g)
+        got = det.detect_fused_batch(frames_c.to(cuda_device))
+        parity = det.detect_parity(frames_c[0])
+        after = device.tf32_flags()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before["matmul_allow_tf32"]
+        torch.backends.cudnn.allow_tf32 = before["cudnn_allow_tf32"]
+    # The guard put the caller's setting back.
+    assert after["matmul_allow_tf32"] is (precision == "high")
+    assert len(got) == len(want) == batch
+    for g, w in zip(got, want):
+        assert [(d.x, d.y, d.width, d.height, d.person_name, d.scale) for d in g] == \
+            [(d.x, d.y, d.width, d.height, d.person_name, d.scale) for d in w]
+        assert len(g) == 1 and (g[0].x, g[0].y, g[0].width) == (x, y, 128)
+        # NCC values <= 1; cuFFT and cuBLAS sum in other orders than the CPU.
+        assert abs(g[0].confidence - w[0].confidence) <= 1e-4
+    assert (parity[0].x, parity[0].y, parity[0].width) == (x, y, 128)
+
+
+@pytest.mark.gpu
+def test_make_fused_recognizer_at_128_on_card(cuda_device):
+    """D = 16384: the crop shape of the multi-model scan's admitted boxes."""
+    from face_detection_recognization_pca_tpu_torch.models.eigenfaces import train_v2
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    images = 120 + 30 * torch.randn(96, 64 * 64, generator=g, device=cuda_device)
+    model, _ = train_v2(images, torch.arange(96, device=cuda_device) % 5, 32, (64, 64))
+    crops = 120 + 40 * torch.randn(37, 128, 128, generator=g, device=cuda_device)
+    fn, lin = tfm.make_fused_recognizer(model, (128, 128))
+    assert tuple(lin.m.shape) == (16384, 32)
+    before = tfm.fused_match.launches
+    rows, conf = fn(crops)
+    assert tfm.fused_match.launches == before + 1
+    rows_p, conf_p = tfm.recognize_linearized(lin, crops)
+    torch.cuda.synchronize()
+    assert rows.shape == (37,) and rows.dtype == torch.int32
+    assert torch.equal(rows, rows_p)
+    assert float((conf - conf_p).abs().max()) <= CONF_ATOL
+
+
+@pytest.mark.gpu
+def test_multimodel_scan_on_card_equals_the_cpu(cuda_device):
+    """The batched multi-model scan on the card gives the CPU's records."""
+    from face_detection_recognization_pca_tpu_torch import bench
+    from face_detection_recognization_pca_tpu_torch.pipeline.scan_app import (
+        scan_batches_multimodel,
+    )
+
+    records = {}
+    for name, device in (("cpu", torch.device("cpu")), ("cuda", cuda_device)):
+        frames, stack, bank, plants, names, _ = bench.multimodel_scan_assets(
+            6, (360, 640), 5, device, gallery_n=48, k=16)
+        records[name] = scan_batches_multimodel([frames[:4], frames[4:]], stack, bank)
+    assert len(records["cuda"]) == len(records["cpu"]) == 6
+    for got, want, (y, x) in zip(records["cuda"], records["cpu"], plants):
+        assert (got["x"], got["y"], got["width"]) == (x, y, 128)
+        for key, value in want.items():
+            if isinstance(value, float):
+                # The models were trained on each device: SVD and FFT sums
+                # in other orders.
+                assert abs(got[key] - value) <= 1e-4, key
+            else:
+                assert got[key] == value, key
+
+
+@pytest.mark.gpu
+def test_guided_matcher_on_card_equals_the_cpu(cuda_device):
+    """Both routes of the score map (the small template goes through
+    ``conv2d``, the large one through the FFT) under a TF32 caller."""
+    import types
+
+    import numpy as np
+
+    from face_detection_recognization_pca_tpu_torch import device
+    from face_detection_recognization_pca_tpu_torch.detect.guided import GuidedMatcher
+
+    rng = np.random.default_rng(3)
+    frame = rng.integers(50, 200, (300, 400)).astype(np.uint8)
+    yy, xx = np.mgrid[0:64, 0:64] / 64
+    face = np.clip(130 + 60 * np.sin(7 * yy) + 50 * np.cos(5 * xx), 0, 255).astype(np.uint8)
+    frame[100:164, 150:214] = face
+    frame[30:54, 300:324] = face[::2, ::2][:24, :24]
+    priors = [types.SimpleNamespace(center_x=185, center_y=130, width=64, height=64,
+                                    frame_number=4),
+              types.SimpleNamespace(center_x=310, center_y=44, width=24, height=24,
+                                    frame_number=9)]
+    before = device.tf32_flags()
+    torch.set_float32_matmul_precision("high")
+    try:
+        hits = {name: [GuidedMatcher(face, 1.5, device=dev).match_frame(frame, [p], 6)
+                       for p in priors]
+                for name, dev in (("cpu", "cpu"), ("cuda", cuda_device))}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before["matmul_allow_tf32"]
+        torch.backends.cudnn.allow_tf32 = before["cudnn_allow_tf32"]
+    assert (hits["cuda"][0]["x"], hits["cuda"][0]["y"]) == (150, 100)
+    for got, want in zip(hits["cuda"], hits["cpu"]):
+        assert {k: v for k, v in got.items() if k != "confidence"} == \
+            {k: v for k, v in want.items() if k != "confidence"}
+        # NCC values <= 1: cuDNN, cuFFT and cumsum sum in other orders.
+        assert abs(got["confidence"] - want["confidence"]) <= 1e-4

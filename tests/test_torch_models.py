@@ -1,17 +1,20 @@
 """Port parity: ``ops/resize.py``, ``ops/similarity.py``, ``ops/color.py``,
 ``ops/preprocess.py`` and ``models/eigenfaces.py`` (training, projection,
-feature extraction, recognition, weight carry-over)."""
+feature extraction, recognition, weight carry-over, and the v2 trainer with
+its model files crossing between the packages)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from face_detection_recognization_pca_tpu.io import artifacts as jart
 from face_detection_recognization_pca_tpu.models import eigenfaces as jef
 from face_detection_recognization_pca_tpu.ops import color as jcolor
 from face_detection_recognization_pca_tpu.ops import preprocess as jpre
 from face_detection_recognization_pca_tpu.ops import resize as jresize
 from face_detection_recognization_pca_tpu.ops import similarity as jsim
+from face_detection_recognization_pca_tpu_torch.io import artifacts as tart
 from face_detection_recognization_pca_tpu_torch.models import eigenfaces as tef
 from face_detection_recognization_pca_tpu_torch.ops import color as tcolor
 from face_detection_recognization_pca_tpu_torch.ops import preprocess as tpre
@@ -191,3 +194,110 @@ def test_extract_features_and_recognize_match_jax(schema, color):
     np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
     np.testing.assert_allclose(conf_t.numpy(), np.asarray(conf_j), rtol=0, atol=1e-5)
     assert (ids_t[:6] == torch.arange(6) % 5).all()
+
+
+def _v2_training_set(seed=8, n=30, side=12):
+    """Flattened crops of 3 persons with a decaying spectrum, and labels."""
+    rng = np.random.default_rng(seed)
+    d = side * side
+    basis = np.linalg.qr(rng.normal(size=(d, n)))[0]
+    coeffs = rng.normal(size=(n, n)) * np.linspace(40.0, 2.0, n)
+    images = 120.0 + coeffs @ basis.T + rng.normal(0, 0.5, (n, d))
+    return images, (np.arange(n) % 3).astype(np.int64)
+
+
+def test_train_v2_matches_jax_f64():
+    images, labels = _v2_training_set()
+    jmodel, jaux = jef.train_v2(jnp.asarray(images), jnp.asarray(labels), 10, (12, 12))
+    tmodel, taux = tef.train_v2(torch.from_numpy(images), torch.from_numpy(labels), 10, (12, 12))
+    assert tmodel.schema == "v2" and tmodel.face_shape == (12, 12)
+    assert tmodel.labels.dtype == torch.int32 and tmodel.n_components == 10
+    # svd_flip fixes every sign, so the bases compare directly: 1e-8.
+    for name in tef.PARAM_NAMES:
+        np.testing.assert_allclose(getattr(tmodel, name).numpy(),
+                                   np.asarray(getattr(jmodel, name)), atol=1e-8, err_msg=name)
+    for key in ("eigenvalues", "explained_variance_ratio"):
+        np.testing.assert_allclose(taux[key].numpy(), np.asarray(jaux[key]), atol=1e-8)
+    probe = images[:4] + 0.25
+    np.testing.assert_allclose(
+        tef.project_vectors(tmodel, torch.from_numpy(probe)).numpy(),
+        np.asarray(jef.project_vectors(jmodel, jnp.asarray(probe))), atol=1e-8,
+    )
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_train_v2_model_saved_by_one_package_recognises_through_the_other(writer, tmp_path):
+    images, labels = _v2_training_set()
+    id_map = {"ann": 0, "bob": 1, "cy": 2}
+    path = str(tmp_path / "face_model.pkl")
+    crops = images[[0, 4, 8]].reshape(3, 12, 12)
+    if writer == "jax":
+        model, aux = jef.train_v2(jnp.asarray(images), jnp.asarray(labels), 10, (12, 12))
+        jart.save_model_v2(jef.to_artifact(model, aux, person_id_map=id_map), path)
+        art = tart.load_model(path)
+        ids, conf = tef.recognize(
+            tef.from_artifact(art, torch.float64, torch.device("cpu")), torch.from_numpy(crops)
+        )
+        ids, conf = ids.numpy(), conf.numpy()
+    else:
+        model, aux = tef.train_v2(torch.from_numpy(images), torch.from_numpy(labels), 10, (12, 12))
+        tart.save_model_v2(tef.to_artifact(model, aux, person_id_map=id_map), path)
+        art = jart.load_model(path)
+        ids, conf = (np.asarray(a) for a in
+                     jef.recognize(jef.from_artifact(art, jnp.float64), jnp.asarray(crops)))
+    assert art.schema == "v2" and art.person_id_map == id_map
+    assert art.eigenvalues is not None and art.eigenvalues.shape == (10,)
+    # Each training crop finds its own gallery row: cosine 1, its label.
+    np.testing.assert_array_equal(ids, labels[[0, 4, 8]])
+    np.testing.assert_allclose(conf, 1.0, atol=1e-9)
+
+
+def test_apply_scaler_cosine_similarity_and_euclidean_gallery_match_jax():
+    rng = np.random.default_rng(12)
+    x = rng.normal(100, 20, (5, 9))
+    mean, scale = rng.normal(100, 5, 9), rng.uniform(1, 3, 9)
+    for sc in (scale, None):
+        np.testing.assert_allclose(
+            tpre.apply_scaler(torch.from_numpy(x), torch.from_numpy(mean),
+                              None if sc is None else torch.from_numpy(sc)).numpy(),
+            np.asarray(jpre.apply_scaler(jnp.asarray(x), jnp.asarray(mean),
+                                         None if sc is None else jnp.asarray(sc))),
+            rtol=1e-12,
+        )
+    a, b = rng.normal(size=(6, 9)), rng.normal(size=(6, 9))
+    a[2] = 0.0  # a zero norm scores 0
+    got = tsim.cosine_similarity(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jsim.cosine_similarity(jnp.asarray(a), jnp.asarray(b))),
+                               rtol=1e-12, atol=1e-15)
+    assert got[2] == 0
+    gallery = rng.normal(size=(7, 9))
+    gallery[3] = a[1]  # distance 0, clipped before the root
+    dist = tsim.euclidean_gallery(torch.from_numpy(a), torch.from_numpy(gallery))
+    np.testing.assert_allclose(
+        dist.numpy(), np.asarray(jsim.euclidean_gallery(jnp.asarray(a), jnp.asarray(gallery))),
+        rtol=1e-9, atol=1e-7,
+    )
+    assert dist[1, 3] < 1e-6
+
+
+@pytest.mark.parametrize(
+    "box,out_size",
+    [((10.0, 6.0, 24.0, 18.0), (16, 16)),  # inside, downscale
+     ((3.0, 2.0, 9.0, 7.0), (20, 12)),  # inside, upscale
+     ((0.0, 0.0, 40.0, 30.0), (13, 11)),  # the whole frame
+     ((-4.0, -3.0, 20.0, 16.0), (10, 8))],  # reaches outside: zeros and renormalised taps
+)
+def test_crop_resize_dynamic_matches_jax(box, out_size):
+    rng = np.random.default_rng(13)
+    frame = rng.uniform(0, 255, (30, 40)).astype(np.float32)
+    ref = np.asarray(jpre.crop_resize_dynamic(jnp.asarray(frame), jnp.asarray(box, jnp.float32),
+                                              out_size))
+    got = tpre.crop_resize_dynamic(torch.from_numpy(frame), torch.tensor(box), out_size)
+    assert got.shape == ref.shape == (out_size[1], out_size[0])
+    # Held to the JAX output at 1e-5 of the pixel range: both sides place
+    # their sample points in float32, and a last-bit difference there times
+    # a pixel-to-pixel step of up to 255 is what remains.
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5 * 255)
+    if box[0] < 0:
+        assert (got[0] == 0).all() and (got[:, 0] == 0).all()  # sampled beyond the edge

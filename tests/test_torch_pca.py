@@ -66,3 +66,51 @@ def test_scaler_matches_jax(dtype):
         np.asarray(jstd.scaler_transform(jnp.asarray(x), ref)),
         rtol=rtol, atol=rtol,
     )
+
+
+def _flip_invariant(res_t, res_j):
+    """After ``svd_flip`` both solvers give one basis: compare directly."""
+    np.testing.assert_allclose(res_t.components.numpy(), np.asarray(res_j.components), atol=1e-8)
+    np.testing.assert_allclose(res_t.projected.numpy(), np.asarray(res_j.projected), atol=1e-8)
+    np.testing.assert_allclose(res_t.eigenvalues.numpy(), np.asarray(res_j.eigenvalues), rtol=1e-10)
+    np.testing.assert_allclose(res_t.explained_variance_ratio.numpy(),
+                               np.asarray(res_j.explained_variance_ratio), atol=1e-8)
+    np.testing.assert_allclose(res_t.mean.numpy(), np.asarray(res_j.mean), rtol=1e-12)
+
+
+@pytest.mark.parametrize("n,d,k", [(20, 50, 10), (60, 12, 6), (30, 30, 40)])
+def test_scaled_pca_matches_jax_f64(n, d, k):
+    x = _data(n, d, seed=3)
+    ref = jpca.scaled_pca(jnp.asarray(x), k)
+    got = tpca.scaled_pca(torch.from_numpy(x), k)
+    assert got.components.shape == (min(k, n, d), d)
+    _flip_invariant(got, ref)
+    # svd_flip: the largest-|.| entry of every component row is positive.
+    comps = got.components.numpy()
+    assert np.all(comps[np.arange(len(comps)), np.abs(comps).argmax(axis=1)] > 0)
+    # The ratio divides by the variance of all singular values, not the kept k.
+    total = np.var(x - x.mean(0), axis=0, ddof=1).sum()
+    np.testing.assert_allclose(got.explained_variance_ratio.numpy(),
+                               got.eigenvalues.numpy() / total, rtol=1e-9)
+    assert got.explained_variance_ratio.sum() < 1.0 or k >= min(n, d)
+
+
+@pytest.mark.parametrize(
+    "method,n,d,k,engine",
+    [("snapshot", 20, 50, 5, "snapshot"), ("scaled", 20, 50, 5, "scaled"),
+     ("auto", 20, 50, 5, "snapshot"), ("auto", 60, 12, None, "scaled")],
+)
+def test_pca_fit_dispatch_matches_jax(method, n, d, k, engine):
+    x = _data(n, d, seed=4)
+    ref = jpca.pca_fit(jnp.asarray(x), k, method)
+    got = tpca.pca_fit(torch.from_numpy(x), k, method)
+    np.testing.assert_allclose(got.eigenvalues.numpy(), np.asarray(ref.eigenvalues), rtol=1e-9)
+    want = getattr(tpca, engine + "_pca")(torch.from_numpy(x), k or min(n, d))
+    np.testing.assert_array_equal(got.components.numpy(), want.components.numpy())
+    if engine == "scaled":
+        _flip_invariant(got, ref)
+
+
+def test_pca_fit_rejects_an_unknown_method():
+    with pytest.raises(ValueError, match="unknown PCA method"):
+        tpca.pca_fit(torch.zeros(4, 3), 2, "nope")
