@@ -86,7 +86,37 @@ Phases, each printing a line:
     ``recognize_linearized``'s, confidence within 1e-5, one launch per
     call.  It prints frames/s with the copies inside and the seconds per
     stage, and times the kernel at D = 16384 beside plain, ``crops @ m``
-    and the bound (``d16384`` in the JSON line).
+    and the bound (``d16384`` in the JSON line);
+11. the Haar cascade detector: ``bench.haar_detect``, batch 16 at 544p
+    (seed 5): noise frames ``110 + 25 N(0, 1)`` made on the card, each with
+    one synthetic face that the frontal-face cascade accepts
+    (``bench.haar_face``) at a seeded side of 60-220 px and a seeded place.
+    It prints which cascade file was read and its sha256.  Every frame must
+    give a box whose centre lies within 0.1 of the side of the planted
+    centre and whose side lies within [0.9, 1.25] of it; the batch must
+    equal the frames taken one by one; frames 0-1 on the card must give
+    the boxes the same detector gives on the CPU; and on the level of
+    frame 0 that accepts most windows, the card's accepted windows must
+    equal those of a float64 numpy cascade written in this file.  It
+    prints levels, windows per frame, the candidates left after each
+    compaction, raw rectangles, other boxes, blocking and pipelined
+    (depth 6) frames/s, device ms and kernels per batch
+    (``torch.profiler``), the busy share, peak memory, the bytes of the
+    resize's matrix cache and which ``group_rectangles`` route ran.  Then
+    the same once at 1080p, batch 16;
+12. the reference's flow in small, without OpenCV or a video file: for two
+    persons (``bench.haar_face(side, person)``), 24 uint8 BGR 544p frames
+    each through ``detect_frames`` (the body of ``detect_video``), the
+    crops into a ``train_v2`` model trained on the card and written with
+    ``save_model_v2`` into a temporary lock directory; then 16 fresh
+    frames through ``scan_frames_haar_multimodel`` with the models read
+    back.  Every frame must give one record, its box the planted face's by
+    the tolerance above, its name the planted person's, and a
+    ``DetectionFile`` must survive ``write_detection_json`` and
+    ``read_detection_json``.  It prints the frames/s of both halves.
+    Neither phase launches a hand-written kernel (the Haar arithmetic is
+    PyTorch's own operators, as it was XLA's in the JAX package), and both
+    check that.
 
 The line before the last is a JSON object describing each kernel, with
 its time, its plain version's, ``library_ms``, its HMMA counts and
@@ -104,6 +134,7 @@ sees no CUDA device.
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import os
@@ -118,11 +149,14 @@ import numpy as np
 import torch
 
 from face_detection_recognization_pca_tpu_torch import bench, device as port_device
+from face_detection_recognization_pca_tpu_torch.detect import haar
 from face_detection_recognization_pca_tpu_torch.detect.template import TemplateDetector
-from face_detection_recognization_pca_tpu_torch.io.artifacts import save_model_v1
+from face_detection_recognization_pca_tpu_torch.io import native
+from face_detection_recognization_pca_tpu_torch.io.artifacts import save_model_v1, save_model_v2
 from face_detection_recognization_pca_tpu_torch.io.detection_json import (
     DetectionFile,
     DetectionRecord,
+    read_detection_json,
     write_detection_json,
 )
 from face_detection_recognization_pca_tpu_torch.io.video import VideoMeta
@@ -131,8 +165,10 @@ from face_detection_recognization_pca_tpu_torch.models.eigenfaces import (
     recognize,
     to_artifact,
     train_v1,
+    train_v2,
 )
 from face_detection_recognization_pca_tpu_torch.ops import _build
+from face_detection_recognization_pca_tpu_torch.ops import resize as port_resize
 from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
     LinearizedModel,
     _fill16,
@@ -154,11 +190,18 @@ from face_detection_recognization_pca_tpu_torch.parallel import (
 from face_detection_recognization_pca_tpu_torch.parallel.multistream import (
     MultiStreamRecognizer,
 )
+from face_detection_recognization_pca_tpu_torch.ops.preprocess import preprocess_crops
 from face_detection_recognization_pca_tpu_torch.ops.resize import resize_bilinear
+from face_detection_recognization_pca_tpu_torch.pipeline.detect_app import (
+    DETECT_BATCH,
+    detect_frames,
+)
 from face_detection_recognization_pca_tpu_torch.pipeline.scan_app import (
     scan_batches_multimodel,
+    scan_frames_haar_multimodel,
     scan_frames_multimodel,
 )
+from face_detection_recognization_pca_tpu_torch.recognize.engine import ModelStack
 from face_detection_recognization_pca_tpu_torch.pipeline.tracked_scan import (
     scan_batches_tracked,
 )
@@ -171,6 +214,8 @@ HEADLINE_STREAMS, HEADLINE_BATCHES = 16, 32
 SCAN_FRAMES, SCAN_BATCH, SCAN_SEED, SCAN_PERSON = 256, 16, 7, "planted_person"
 DETECT_BATCH, DETECT_TEMPLATES, DETECT_SEED = 16, 8, 3
 MULTISCAN_FRAMES, MULTISCAN_BATCH, MULTISCAN_SEED, MULTISCAN_SIDE = 64, 16, 5, 128
+HAAR_BATCH, HAAR_SEED = 16, 5  # the JAX package's bench_haar: batch 16, 544p, seed 5
+PIPELINE_TRAIN_FRAMES, PIPELINE_SCAN_FRAMES, PIPELINE_K = 24, 16, 16
 GALLERY_B, GALLERY_K, GALLERY_N, GALLERY_SEED = 1024, 128, 1_048_573, 9
 JAX_SHAPE_N = 131072  # the JAX package's per-chip target (bench_large_gallery)
 TRAIN_N, TRAIN_SIDE, TRAIN_K, TRAIN_SEED = 2048, 64, 128, 6
@@ -1026,6 +1071,179 @@ def phase_multiscan(dev, card: str) -> tuple:
     return launches, d16384
 
 
+def numpy_cascade_accepts(gray: np.ndarray, cascade, step: int) -> set:
+    """The ``(x, y)`` of the windows of one pyramid level that pass every
+    stage: the cascade in float64 numpy, every window through every stage
+    (window norm ``nf = sqrt(area * sqsum - sum^2)`` over the inner 22 x 22,
+    stump test ``rectsum < t * nf``, per-stage sum thresholds)."""
+    f = np.asarray(gray, dtype=np.float64)
+    h, w = f.shape
+    wh, ww = cascade.window_size
+    integral = np.zeros((h + 1, w + 1))
+    integral[1:, 1:] = f.cumsum(0).cumsum(1)
+    sqintegral = np.zeros((h + 1, w + 1))
+    sqintegral[1:, 1:] = (f * f).cumsum(0).cumsum(1)
+    ny, nx = (h - wh) // step + 1, (w - ww) // step + 1
+    ys, xs = np.meshgrid(np.arange(ny) * step, np.arange(nx) * step, indexing="ij")
+
+    def rect_sum(ii, x, y, rw, rh):
+        return (ii[ys + y + rh, xs + x + rw] - ii[ys + y + rh, xs + x]
+                - ii[ys + y, xs + x + rw] + ii[ys + y, xs + x])
+
+    s1 = rect_sum(integral, 1, 1, ww - 2, wh - 2)
+    s2 = rect_sum(sqintegral, 1, 1, ww - 2, wh - 2)
+    nf2 = (wh - 2) * (ww - 2) * s2 - s1 * s1
+    nf = np.where(nf2 > 0, np.sqrt(np.maximum(nf2, 0)), 1.0)
+    passed = np.ones((ny, nx), dtype=bool)
+    for si in range(cascade.n_stages):
+        stage_sum = np.zeros((ny, nx))
+        for s in range(cascade.stage_offsets[si], cascade.stage_offsets[si + 1]):
+            val = np.zeros((ny, nx))
+            for (x, y, rw, rh, wt) in cascade.rects[cascade.stump_feature[s]]:
+                if wt != 0.0:
+                    val += wt * rect_sum(integral, int(x), int(y), int(rw), int(rh))
+            stage_sum += np.where(val < cascade.stump_threshold[s] * nf,
+                                  cascade.leaf0[s], cascade.leaf1[s])
+        passed &= stage_sum >= cascade.stage_thresholds[si]
+    iy, ix = np.nonzero(passed)
+    return {(int(x) * step, int(y) * step) for y, x in zip(iy, ix)}
+
+
+def phase_haar(dev, card: str) -> None:
+    path = haar.find_cascade()
+    digest = hashlib.sha256(open(path, "rb").read()).hexdigest()
+    cascade = haar.load_cascade(path)
+    print(f"[haar] cascade {path} sha256 {digest}: {cascade.n_stages} stages, "
+          f"{cascade.n_stumps} stumps")
+    route = "native" if native.group_rectangles_native([(0, 0, 24, 24)] * 2, 1, 0.2) else "numpy"
+    det = haar.HaarDetector(cascade, device=dev)
+    on_cpu = haar.HaarDetector(cascade, device="cpu")
+    fused_match.launches = gallery_match.launches = 0
+    for size in ("544p", "1080p"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = bench.haar_detect(HAAR_BATCH, bench.SIZES[size], iters=3, seed=HAAR_SEED,
+                                   device=dev, detector=det)
+        frames, plants, handle = result["frames"], result["plants"], result["handle"]
+        boxes = result["detections"]
+        others = 0
+        for i, (found, plant) in enumerate(zip(boxes, plants)):
+            planted = bench.haar_planted_boxes(found, plant)
+            check(len(planted) >= 1, f"{size} frame {i}: boxes {found}, planted (y, x, patch, "
+                                     f"side) {plant.tolist()}")
+            others += len(found) - len(planted)
+        singles = [det.detect_multi_scale(frames[i]) for i in range(HAAR_BATCH)]
+        check(singles == boxes, f"{size}: the batch equals the frames taken one by one")
+        cpu_boxes = on_cpu.detect_multi_scale_batch(frames[:2].cpu())
+        check(cpu_boxes == boxes[:2], f"{size}: card {boxes[:2]} against the CPU's {cpu_boxes}")
+
+        # One level of frame 0 against the float64 numpy cascade: the level
+        # that accepts most windows, resized as the detector resizes it.
+        rows = handle["rows"].numpy()
+        rows0 = rows[rows[:, 0] == 0]
+        level = int(np.bincount(rows0[:, 1]).argmax())
+        factor, sh, sw, step = handle["levels"][level]
+        with port_device.exact_float32():
+            scaled = resize_bilinear(frames[0], (sw, sh)).cpu().numpy()
+        want = numpy_cascade_accepts(scaled, cascade, step)
+        got = {(int(x), int(y)) for _, lv, y, x in rows0 if lv == level}
+        check(got == want and len(got) > 0,
+              f"{size} level {level}: card accepts {sorted(got)}, numpy cascade {sorted(want)}")
+
+        traced = bench.traced_kernels(lambda: det.detect_device(frames), 2)
+        check(bool(traced), f"{size}: torch.profiler saw the detector's kernels")
+        device_ms = sum(us for _, us, _ in traced) / 1e3
+        print(f"[haar] {size} batch {HAAR_BATCH}: every frame gives the planted face's box "
+              f"(sides {[int(p[3]) for p in plants]}, boxes {[b[0][2] for b in boxes]}), "
+              f"{others} other boxes; batch equals frame by frame; frames 0-1 equal the CPU's; "
+              f"level {level} (factor {factor:.3f}, {sh} x {sw}, step {step}) of frame 0: "
+              f"{len(got)} accepted windows equal the float64 numpy cascade's; "
+              f"{len(handle['levels'])} levels, {handle['windows']} windows per frame, candidates "
+              f"after (stage, left) {handle['survivors']}, raw rectangles {result['raw']}; "
+              f"blocking {result['fps']} frames/s ({result['ms_per_batch']} ms per batch, best of "
+              f"3), pipelined depth 6 {result['pipelined_fps']} frames/s "
+              f"({result['pipelined_ms_per_batch']} ms per batch); device {device_ms} ms in "
+              f"{sum(c for _, _, c in traced):.0f} kernels per batch (torch.profiler), busy share "
+              f"{device_ms / result['ms_per_batch']}, by family "
+              f"{json.dumps(bench.kernel_families(traced))}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; resize matrix cache "
+              f"{port_resize.interp_cache_bytes() / 1e6:.1f} MB; group_rectangles route: {route}; "
+              f"phase {time.perf_counter() - t0:.2f} s; card {card}")
+        del result, frames, handle
+        torch.cuda.empty_cache()
+    check(fused_match.launches == 0 and gallery_match.launches == 0,
+          "the Haar detector launches no hand-written kernel")
+
+
+def phase_haar_pipeline(dev, card: str) -> None:
+    size = bench.SIZES["544p"]
+    h, w = size
+    persons = {"person1": 1, "person2": 2}
+    det = haar.HaarDetector(device=dev)
+    meta = VideoMeta(w, h, 30.0, PIPELINE_TRAIN_FRAMES)
+    fused_match.launches = gallery_match.launches = 0
+    with tempfile.TemporaryDirectory() as lock_dir:
+        train_seconds = []
+        for name, person in persons.items():
+            frames, plants = bench.haar_bgr_frames(PIPELINE_TRAIN_FRAMES, size, 100 + person,
+                                                   persons=(person,))
+            t0 = time.perf_counter()
+            found, crops = detect_frames(iter(frames), meta, detector=det, video_path="synthetic",
+                                         progress_every=0)
+            train_seconds.append(time.perf_counter() - t0)
+            check(found.total_frames == PIPELINE_TRAIN_FRAMES, f"{name}: frames seen")
+            for i, plant in enumerate(plants):
+                hits = [(r.x, r.y, r.width, r.height) for r in found.faces if r.frame_number == i]
+                check(len(hits) == 1 and len(bench.haar_planted_boxes(hits, plant)) == 1,
+                      f"{name} frame {i}: boxes {hits}, planted {plant.tolist()}")
+            person_dir = os.path.join(lock_dir, name)
+            os.makedirs(person_dir)
+            json_path = os.path.join(person_dir, f"{name}_faces_detection.json")
+            write_detection_json(found, json_path)
+            back = read_detection_json(json_path)
+            check([vars(r) for r in back.faces] == [vars(r) for r in found.faces]
+                  and (back.total_frames, back.fps, back.total_faces_detected)
+                  == (found.total_frames, found.fps, found.total_faces_detected),
+                  f"{name}: the DetectionFile survives its JSON")
+            rows = torch.cat([
+                preprocess_crops(torch.from_numpy(crop[None]).to(dev), (64, 64)) for crop in crops])
+            model, aux = train_v2(rows, torch.zeros(len(rows), dtype=torch.int32, device=dev),
+                                  n_components=PIPELINE_K, face_shape=(64, 64))
+            save_model_v2(to_artifact(model, aux, person_id_map={name: 0}, person_name=name),
+                          os.path.join(person_dir, "face_model.pkl"))
+        stack = ModelStack.from_lock_dir(lock_dir, device=dev)
+    check(stack.model_names == list(persons), f"models read back: {stack.model_names}")
+
+    frames, plants = bench.haar_bgr_frames(PIPELINE_SCAN_FRAMES, size, 7,
+                                           persons=tuple(persons.values()))
+    t0 = time.perf_counter()
+    records = scan_frames_haar_multimodel(iter(frames), stack, detector=det)
+    scan_seconds = time.perf_counter() - t0
+    check([r["frame_number"] for r in records] == list(range(PIPELINE_SCAN_FRAMES)),
+          f"one record per frame: {[r['frame_number'] for r in records]}")
+    names = list(persons)
+    for r, plant in zip(records, plants):
+        i = r["frame_number"]
+        box = (r["x"], r["y"], r["width"], r["height"])
+        check(len(bench.haar_planted_boxes([box], plant)) == 1,
+              f"frame {i}: box {box}, planted {plant.tolist()}")
+        check(r["person_name"] == names[i % len(names)] and r["person_id"] == 0,
+              f"frame {i}: named {r['person_name']} ({r['confidence']})")
+    check(fused_match.launches == 0 and gallery_match.launches == 0,
+          "the Haar flows launch no hand-written kernel")
+    train_fps = [PIPELINE_TRAIN_FRAMES / seconds for seconds in train_seconds]
+    print(f"[haar-pipeline] {len(persons)} persons x {PIPELINE_TRAIN_FRAMES} uint8 BGR 544p frames "
+          f"through detect_frames ({DETECT_BATCH} frames per detector call): one face per frame at the "
+          f"planted place, {train_fps} frames/s per person with the host-to-device copies "
+          f"inside (the first person's run builds the detector's stage tensors and resize "
+          f"matrices); the DetectionFiles survive their JSON; train_v2 models (k {PIPELINE_K}, 64 x "
+          f"64) written and read back through a temporary lock directory; "
+          f"{PIPELINE_SCAN_FRAMES} fresh frames through scan_frames_haar_multimodel: one record "
+          f"per frame with the planted box and person, min confidence "
+          f"{min(r['confidence'] for r in records):.6f}, "
+          f"{PIPELINE_SCAN_FRAMES / scan_seconds} frames/s (host clock); card {card}")
+
+
 def main() -> int:
     dev = phase_environment()
     card = torch.cuda.get_device_name(0)
@@ -1043,6 +1261,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_detect(dev, card)
     by_path["multiscan"], d16384 = phase_multiscan(dev, card)
+    torch.cuda.empty_cache()
+    phase_haar(dev, card)
+    phase_haar_pipeline(dev, card)
     print(json.dumps({"kernels": [
         {**KERNELS["fused_match"], "launches": sum(by_path.values()),
          "launches_by_path": by_path, **fused, "d16384": d16384, "hmma": hmma["fused_match"]},

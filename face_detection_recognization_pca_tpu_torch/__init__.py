@@ -22,7 +22,13 @@ second per card among them; the template detectors, full frame and
 guided (:mod:`.detect`, on :mod:`.ops.match`, :mod:`.ops.integral` and
 :mod:`.ops.nms`), the multi-model recognizer and the fusion rules
 (:mod:`.recognize`), and the guided and multi-model scans
-(:mod:`.pipeline.scan_app`).
+(:mod:`.pipeline.scan_app`); the Haar cascade detector
+(:mod:`.detect.haar`, with the frontal-face cascade as package data) and
+the flows that stand on it: the detection stage
+(:mod:`.pipeline.detect_app`), the Haar multi-model scan, the v1 training
+and dual-model scan (:mod:`.pipeline.v1_apps`), the output-video oracle
+(:mod:`.pipeline.oracle`), checkpoints and image dumps
+(:mod:`.io.checkpoint`, :mod:`.io.images`).
 """
 
 __version__ = "0.1.0"

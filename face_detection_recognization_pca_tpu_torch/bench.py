@@ -30,6 +30,13 @@ The multi-model scan: persons with distinct faces, a v2 model and two
 templates each, planted in turn into uint8 BGR frames
 (:func:`multimodel_scan_assets`), for
 :func:`..pipeline.scan_app.scan_batches_multimodel`.
+
+The Haar detector (``bench_haar``): noise frames, each holding one
+synthetic face that the frontal-face cascade accepts (:func:`haar_face`)
+at a seeded side and place (:func:`haar_assets`), through
+:class:`..detect.haar.HaarDetector` blocking and pipelined
+(:func:`haar_detect`); :func:`haar_bgr_frames` makes the same scenes as
+uint8 BGR frames on the host for the apps that stand on the detector.
 """
 
 from __future__ import annotations
@@ -749,3 +756,179 @@ def multimodel_scan_assets(
     for i, (y, x) in enumerate(plants):
         frames[i, y:y + side, x:x + side] = faces[i % persons][:, :, None]
     return frames, stack, bank, plants, names, models
+
+
+# The synthetic face of :func:`haar_face` on the cascade's 24 x 24 base grid
+# (pixel centres at 0..23): a grey level plus Gaussian blobs
+# ``amp * exp(-((y - cy)^2 / 2 sy^2 + (x - cx)^2 / 2 sx^2))``, the paired
+# ones mirrored about x = 11.5 at ``11.5 -+ dx``.  Fitted by a random
+# hill-climb that counted, through a float64 numpy cascade, the accepted
+# windows among 150 renderings at 0.86-1.21 of the base size shifted by up
+# to 2 px: 122 of them pass all 25 stages, where a hand-drawn face of the
+# same blobs passed 10 and was lost at minNeighbors = 5 in one frame of five.
+_HAAR_FACE_LEVEL = 80.9
+_HAAR_FACE_BLOBS = (  # (amp, cy, cx, sy, sx)
+    (134.2, 11.8, 11.6, 10.0, 7.5),  # head
+    (26.6, 11.1, 11.2, 4.5, 0.9),  # nose bridge
+    (-62.5, 15.4, 11.3, 1.4, 3.5),  # mouth
+)
+_HAAR_FACE_PAIRS = (  # (amp, cy, dx, sy, sx)
+    (-79.8, 9.4, 2.2, 1.3, 1.8),  # eyes
+    (9.7, 4.9, 2.7, 1.5, 2.9),  # brows
+    (40.6, 14.4, 7.1, 3.4, 1.7),  # cheeks
+)
+HAAR_FACE_MARGIN = 0.125  # of the side, rendered around the face on each side
+HAAR_TEXTURE_LEVELS = 5.0  # grey levels: the amplitude of each of a person's three waves
+
+
+def haar_face(side: int, person: int = 0) -> np.ndarray:
+    """A synthetic frontal face of nominal ``side`` px that
+    ``haarcascade_frontalface_default.xml`` accepts: a uint8 patch of
+    ``round(1.25 * side)`` px, the face in its middle and its blobs simply
+    continuing into the margin, so that the detector's box (about the
+    nominal side, up to 1.05 of it) lies inside the patch.
+
+    ``person`` 0 is the plain recipe; any other adds a smooth texture of a
+    few grey levels (three low-frequency waves from
+    ``np.random.default_rng(person)``) that tells persons apart and leaves
+    the face accepted."""
+    patch = int(round(side * (1 + 2 * HAAR_FACE_MARGIN)))
+    # Patch pixel centres in base-grid coordinates.
+    c = (np.arange(patch) + 0.5 - (patch - side) / 2.0) * (24.0 / side) - 0.5
+    yy, xx = np.meshgrid(c, c, indexing="ij")
+
+    def blob(cy, cx, sy, sx):
+        return np.exp(-((yy - cy) ** 2 / (2 * sy * sy) + (xx - cx) ** 2 / (2 * sx * sx)))
+
+    img = np.full(yy.shape, _HAAR_FACE_LEVEL)
+    for amp, cy, cx, sy, sx in _HAAR_FACE_BLOBS:
+        img += amp * blob(cy, cx, sy, sx)
+    for amp, cy, dx, sy, sx in _HAAR_FACE_PAIRS:
+        img += amp * (blob(cy, 11.5 - dx, sy, sx) + blob(cy, 11.5 + dx, sy, sx))
+    if person:
+        rng = np.random.default_rng(person)
+        for _ in range(3):
+            fy, fx = rng.uniform(-0.35, 0.35, 2)
+            img += HAAR_TEXTURE_LEVELS * np.cos(fy * yy + fx * xx + rng.uniform(0, 6.28))
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+
+def haar_plants(n: int, size: Tuple[int, int], rng: np.random.Generator,
+                sides: Tuple[int, int] = (60, 220)) -> np.ndarray:
+    """``(n, 4)`` int rows ``(y, x, patch, side)``: a face of a nominal side
+    drawn from ``sides`` (inclusive) whose :func:`haar_face` patch of
+    ``patch`` px has its top-left corner at ``(y, x)``, at least 8 px inside
+    the frame."""
+    h, w = size
+    side = rng.integers(sides[0], sides[1] + 1, n)
+    patch = np.rint(side * (1 + 2 * HAAR_FACE_MARGIN)).astype(np.int64)
+    y = rng.integers(8, h - patch - 8 + 1)
+    x = rng.integers(8, w - patch - 8 + 1)
+    return np.stack([y, x, patch, side], axis=1)
+
+
+def haar_planted_boxes(boxes, plant) -> list:
+    """Those of ``boxes`` (x, y, w, h) that name the face of ``plant``
+    (a :func:`haar_plants` row): the centre within 0.1 of the side of the
+    planted centre, the width within [0.9, 1.25] of the side."""
+    y, x, patch, side = (int(v) for v in plant)
+    cy, cx = y + patch / 2.0, x + patch / 2.0
+    return [
+        b for b in boxes
+        if abs(b[0] + b[2] / 2.0 - cx) <= 0.1 * side and abs(b[1] + b[3] / 2.0 - cy) <= 0.1 * side
+        and 0.9 * side <= b[2] <= 1.25 * side
+    ]
+
+
+def haar_assets(batch: int, size: Tuple[int, int], seed: int, device: torch.device,
+                noise: Tuple[float, float] = (110.0, 25.0)):
+    """``(frames, plants)`` for the Haar detector: ``(batch, H, W)`` float32
+    frames on ``device``, noise ``110 + 25 N(0, 1)`` (not rounded) from a
+    ``torch.Generator`` there seeded with ``seed``, each holding one
+    :func:`haar_face` at ``plants[i]`` (:func:`haar_plants` from
+    ``np.random.default_rng(seed)``)."""
+    h, w = size
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    frames = torch.empty((batch, h, w), dtype=torch.float32, device=device)
+    frames.normal_(noise[0], noise[1], generator=gen)
+    plants = haar_plants(batch, size, np.random.default_rng(seed))
+    for i, (y, x, patch, side) in enumerate(plants):
+        face = torch.from_numpy(haar_face(int(side)).astype(np.float32)).to(device)
+        frames[i, y:y + patch, x:x + patch] = face
+    return frames, plants
+
+
+def haar_bgr_frames(n: int, size: Tuple[int, int], seed: int, persons: Sequence[int] = (0,)):
+    """``(frames, plants)`` on the host, as a decoder hands them over:
+    ``(n, H, W, 3)`` uint8 BGR frames of grey noise ``110 + 25 N(0, 1)``
+    (B = G = R), frame i holding :func:`haar_face` of person
+    ``persons[i % len(persons)]`` at ``plants[i]``, all from
+    ``np.random.default_rng(seed)``."""
+    h, w = size
+    rng = np.random.default_rng(seed)
+    plants = haar_plants(n, size, rng)
+    gray = np.clip(np.rint(rng.normal(110.0, 25.0, (n, h, w)).astype(np.float32)), 0, 255)
+    gray = gray.astype(np.uint8)
+    for i, (y, x, patch, side) in enumerate(plants):
+        gray[i, y:y + patch, x:x + patch] = haar_face(int(side), persons[i % len(persons)])
+    return np.repeat(gray[..., None], 3, axis=3), plants
+
+
+def haar_detect(
+    batch: int = 16,
+    size: Tuple[int, int] = SIZES["544p"],
+    iters: int = 3,
+    seed: int = 5,
+    depth: int = 6,
+    device: Optional[torch.device] = None,
+    detector=None,
+) -> Dict[str, object]:
+    """Full-frame Haar ``detectMultiScale`` throughput (port of
+    ``bench_haar``) on :func:`haar_assets`, host grouping included.
+    ``device=None`` means the CUDA device.
+
+    ``fps``: :meth:`HaarDetector.detect_multi_scale_batch`, best of
+    ``iters`` after one warm-up call.  ``pipelined_fps``: ``depth`` batches
+    (the frames plus 1e-3 * i, so no two are equal) with batch i + 1's
+    device half issued before batch i's host half.  ``detections`` are the
+    last blocking call's boxes, ``handle`` one device half's handle
+    (levels, windows per frame, survivors after each compaction) and
+    ``raw`` the raw rectangles per frame before grouping."""
+    from face_detection_recognization_pca_tpu_torch.detect.haar import HaarDetector
+
+    device = resolve_device(device)
+    det = detector or HaarDetector(device=device)
+    frames, plants = haar_assets(batch, size, seed, device)
+    handle = det.detect_device(frames)  # warm-up: stage tensors, resize matrices
+    out = det.detect_finish(handle)
+    dt = float("inf")
+    for _ in range(iters):
+        _synchronize(device)
+        t0 = time.perf_counter()
+        out = det.detect_multi_scale_batch(frames)
+        dt = min(dt, time.perf_counter() - t0)
+
+    _synchronize(device)
+    t0 = time.perf_counter()
+    handles = [det.detect_device(frames + 1e-3)]
+    for i in range(1, depth):
+        handles.append(det.detect_device(frames + 1e-3 * (i + 1)))
+        det.detect_finish(handles[i - 1])
+    det.detect_finish(handles[-1])
+    dt_pipe = (time.perf_counter() - t0) / depth
+    return {
+        "fps": batch / dt,
+        "ms_per_batch": dt * 1e3,
+        "pipelined_fps": batch / dt_pipe,
+        "pipelined_ms_per_batch": dt_pipe * 1e3,
+        "size": tuple(size),
+        "batch": batch,
+        "detected": sum(1 for d in out if d),
+        "detections": out,
+        "plants": plants,
+        "frames": frames,
+        "handle": handle,
+        "raw": np.bincount(handle["rows"][:, 0].numpy(), minlength=batch).tolist(),
+    }

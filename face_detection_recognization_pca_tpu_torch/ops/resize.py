@@ -14,6 +14,7 @@ Half-pixel centers with edge clamping, in two forms:
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import Tuple
 
@@ -99,14 +100,37 @@ def _interp_matrix(src: int, dst: int, dtype) -> np.ndarray:
     return m.astype(dtype)
 
 
-@functools.lru_cache(maxsize=64)
+# (sh, sw, dh, dw, device, dtype) -> (Wy, Wx^T), the least recently used first.
+_MATRIX_CACHE: "collections.OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = (
+    collections.OrderedDict()
+)
+_MATRIX_CACHE_MAX_BYTES = 512 << 20
+
+
 def _interp_matrices(sh: int, sw: int, dh: int, dw: int, device: torch.device, dtype: torch.dtype):
     """``(Wy (dh, sh), Wx^T (sw, dw))`` on ``device``, built and copied over
     once per geometry: at full-frame sizes the pair is tens of MB, and a
-    copy from pageable memory on every call stalls the caller."""
-    wy = _interp_matrix(sh, dh, np.float64)
-    wxt = _interp_matrix(sw, dw, np.float64).T
-    return torch.from_numpy(wy).to(device, dtype), torch.from_numpy(wxt).to(device, dtype)
+    copy from pageable memory on every call stalls the caller.  The Haar
+    pyramid asks for one geometry per level (37 at 1080p, 160 MB), so the
+    cache holds up to 512 MiB, two such frame sizes' worth; the least
+    recently used pairs go first."""
+    key = (sh, sw, dh, dw, device, dtype)
+    pair = _MATRIX_CACHE.get(key)
+    if pair is None:
+        wy = _interp_matrix(sh, dh, np.float64)
+        wxt = _interp_matrix(sw, dw, np.float64).T
+        pair = (torch.from_numpy(wy).to(device, dtype), torch.from_numpy(wxt).to(device, dtype))
+        _MATRIX_CACHE[key] = pair
+        while len(_MATRIX_CACHE) > 1 and interp_cache_bytes() > _MATRIX_CACHE_MAX_BYTES:
+            _MATRIX_CACHE.popitem(last=False)
+    else:
+        _MATRIX_CACHE.move_to_end(key)
+    return pair
+
+
+def interp_cache_bytes() -> int:
+    """Bytes of the interpolation matrices the cache holds now."""
+    return sum(t.numel() * t.element_size() for pair in _MATRIX_CACHE.values() for t in pair)
 
 
 def resize_bilinear(

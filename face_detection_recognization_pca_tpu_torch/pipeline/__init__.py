@@ -1,1 +1,2 @@
-"""End-to-end apps: the tracked video scan."""
+"""End-to-end apps: the detection stage, the video scans, the v1 apps
+and the output oracle."""

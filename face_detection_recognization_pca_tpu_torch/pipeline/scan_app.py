@@ -28,7 +28,12 @@ of BGR frames (or frame batches), a :class:`ModelStack` and a
 device as uint8 BGR, and the gray conversion (OpenCV's fixed-point one,
 bit for bit) and the crops are taken on the device.
 
-The Haar and enhanced-model scans of the JAX package are not ported yet.
+* **v3 mode** (``useless/scan-template-v3.py``): Haar detection per
+  frame, every crop verified against all person models
+  (:func:`scan_haar_multimodel`, and :func:`scan_frames_haar_multimodel`
+  over frames in memory).
+
+The enhanced-model scan of the JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import torch
 
 from face_detection_recognization_pca_tpu_torch.config import PipelineConfig
 from face_detection_recognization_pca_tpu_torch.detect.guided import GuidedMatcher
+from face_detection_recognization_pca_tpu_torch.detect.haar import HaarDetector
 from face_detection_recognization_pca_tpu_torch.detect.template import (
     TemplateBank,
     TemplateDetector,
@@ -57,6 +63,7 @@ from face_detection_recognization_pca_tpu_torch.io.detection_json import (
 from face_detection_recognization_pca_tpu_torch.io.video import VideoReader, VideoWriter
 from face_detection_recognization_pca_tpu_torch.models import eigenfaces as ef
 from face_detection_recognization_pca_tpu_torch.ops.color import bgr_to_gray_exact
+from face_detection_recognization_pca_tpu_torch.pipeline.detect_app import haar_faces_per_frame
 from face_detection_recognization_pca_tpu_torch.recognize.engine import (
     ModelStack,
     MultiModelRecognizer,
@@ -565,5 +572,80 @@ def scan_multimodel(
         )
     finally:
         closer()
+        if writer:
+            writer.close()
+
+
+def scan_frames_haar_multimodel(
+    frames: Iterable[np.ndarray],
+    stack: ModelStack,
+    config: Optional[PipelineConfig] = None,
+    writer=None,
+    max_frames: Optional[int] = None,
+    detector: Optional[HaarDetector] = None,
+) -> List[dict]:
+    """The v3 scan over an iterator of ``(H, W, 3)`` uint8 BGR frames (a
+    ``None`` frame ends it), on the stack's device: Haar detection, then
+    every crop verified against all person models, best cosine across
+    models wins (threshold 0.7).  With a ``writer`` the overlay is drawn
+    (with OpenCV) and every frame written."""
+    cfg = config or PipelineConfig()
+    recognizer = MultiModelRecognizer(stack, cfg.recognize)
+    detector = detector or HaarDetector(device=stack.device)
+    results: List[dict] = []
+    frame_no = 0
+    for frame, faces in haar_faces_per_frame(frames, detector, cfg, max_frames):
+        for (x, y, w, h) in faces[: cfg.detect.max_detections]:
+            crop = frame[y : y + h, x : x + w]
+            pid, name, conf = (
+                recognizer.recognize_one(crop, cfg.recognize.cosine_threshold)
+                if crop.size
+                else (-1, UNKNOWN, 0.0)
+            )
+            if pid < 0:
+                name = UNKNOWN
+            if writer:
+                annotate.draw_guided(frame, (x, y, w, h), name, conf)
+            results.append(
+                {
+                    "frame_number": frame_no,
+                    "person_id": int(pid),
+                    "person_name": name,
+                    "confidence": float(conf),
+                    "x": int(x),
+                    "y": int(y),
+                    "width": int(w),
+                    "height": int(h),
+                }
+            )
+        if writer:
+            writer.write(frame)
+        frame_no += 1
+    return results
+
+
+def scan_haar_multimodel(
+    source,
+    lock_dir: Optional[str] = None,
+    output_path: Optional[str] = None,
+    config: Optional[PipelineConfig] = None,
+    max_frames: Optional[int] = None,
+    device: Optional[torch.device] = None,
+) -> List[dict]:
+    """v3-generation scanning (``useless/scan-template-v3.py``):
+    :func:`scan_frames_haar_multimodel` fed by the decoder, with every
+    model of the lock directory."""
+    cfg = config or PipelineConfig()
+    lock = lock_dir or cfg.paths.lock_dir
+    stack = ModelStack.from_lock_dir(lock, device=resolve_device(device))
+    reader = VideoReader(source)
+    meta = reader.meta
+    writer = VideoWriter(output_path, (meta.width, meta.height), meta.fps) if output_path else None
+    try:
+        return scan_frames_haar_multimodel(
+            reader.frames(), stack, cfg, writer=writer, max_frames=max_frames
+        )
+    finally:
+        reader.close()
         if writer:
             writer.close()

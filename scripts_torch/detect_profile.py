@@ -86,7 +86,7 @@ def main() -> int:
         t0 = time.perf_counter()
         for _ in range(calls):
             if uploaded:
-                resize._interp_matrices.cache_clear()
+                resize._MATRIX_CACHE.clear()
             fn()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / calls * 1e3

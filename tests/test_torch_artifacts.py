@@ -1,7 +1,8 @@
 """Port parity for the host modules: model pickles cross between the two
 packages in both directions, an artifact carried into the port recognizes
-as the JAX package does, and the config and detection JSONs are the same
-text."""
+as the JAX package does, the config and detection JSONs are the same
+text, a model checkpoint written by either package loads in the other,
+and the eigenface image dumps are the same files."""
 
 import dataclasses
 import json
@@ -15,13 +16,17 @@ import torch
 
 from face_detection_recognization_pca_tpu import config as jconfig
 from face_detection_recognization_pca_tpu.io import artifacts as jart
+from face_detection_recognization_pca_tpu.io import checkpoint as jckpt
 from face_detection_recognization_pca_tpu.io import detection_json as jdet
+from face_detection_recognization_pca_tpu.io import images as jimages
 from face_detection_recognization_pca_tpu.io import sklearn_shim as jshim
 from face_detection_recognization_pca_tpu.models import eigenfaces as jef
 from face_detection_recognization_pca_tpu.utils import logging as jlog
 from face_detection_recognization_pca_tpu_torch import config as tconfig
 from face_detection_recognization_pca_tpu_torch.io import artifacts as tart
+from face_detection_recognization_pca_tpu_torch.io import checkpoint as tckpt
 from face_detection_recognization_pca_tpu_torch.io import detection_json as tdet
+from face_detection_recognization_pca_tpu_torch.io import images as timages
 from face_detection_recognization_pca_tpu_torch.io import sklearn_shim as tshim
 from face_detection_recognization_pca_tpu_torch.models import eigenfaces as tef
 from face_detection_recognization_pca_tpu_torch.utils import logging as tlog
@@ -280,3 +285,66 @@ def test_counters_summary_equals_jax():
     assert tc.recognition_summary() == jc.recognition_summary()
     assert tc.as_dict() == jc.as_dict() and tc.get("frames") == 10
     assert tlog.Counters().recognition_summary().endswith("Recognition rate: 0.0%")
+
+
+@pytest.mark.parametrize("schema", ["v1", "v2"])
+def test_model_checkpoints_cross_between_the_packages(tmp_path, monkeypatch, schema):
+    """The ``.npz`` + JSON checkpoint: the port reads what the JAX package
+    writes where it has no orbax, and the other way round, array for
+    array; an orbax directory is refused with a message that says why."""
+    jmodel = jef.from_artifact(_artifact(jart, schema), dtype=np.float64)
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)  # the JAX writer's npz route
+    written = jckpt.save_model_ckpt(jmodel, str(tmp_path / "from_jax"))
+    assert written.endswith("from_jax.npz")
+    tmodel = tckpt.load_model_ckpt(str(tmp_path / "from_jax"), device=CPU)
+    assert tmodel.schema == schema and tmodel.face_shape == (8, 8)
+    back = tckpt.save_model_ckpt(tmodel, str(tmp_path / "sub" / "from_port"))
+    assert back.endswith("from_port.npz") and tckpt.save_model_ckpt(tmodel, back) == back
+    assert json.load(open(back + ".meta.json")) == json.load(open(written + ".meta.json"))
+    again = jckpt.load_model_ckpt(back)
+    assert again.schema == schema and tuple(again.face_shape) == (8, 8)
+    for name in tef.PARAM_NAMES:
+        want = getattr(jmodel, name)
+        if want is None:
+            assert getattr(tmodel, name) is None and getattr(again, name) is None
+            continue
+        assert getattr(tmodel, name).numpy().dtype == np.asarray(want).dtype, name
+        np.testing.assert_array_equal(getattr(tmodel, name).numpy(), np.asarray(want), name)
+        np.testing.assert_array_equal(np.asarray(getattr(again, name)), np.asarray(want), name)
+    (tmp_path / "orbax_dir").mkdir()
+    with pytest.raises(FileNotFoundError, match="orbax"):
+        tckpt.load_model_ckpt(str(tmp_path / "orbax_dir"), device=CPU)
+
+
+def test_stage_state_equals_jax(tmp_path):
+    path = str(tmp_path / "state.json")
+    assert vars(tckpt.StageState.load(path, "detect_v1")) == vars(
+        jckpt.StageState.load(path, "detect_v1"))
+    tckpt.StageState("detect_v1", last_frame=41, next_face_id=7, extra={"video": "a.mp4"}).save(path)
+    text = open(path).read()
+    assert vars(jckpt.StageState.load(path)) == vars(tckpt.StageState.load(path))
+    jckpt.StageState("detect_v1", last_frame=41, next_face_id=7, extra={"video": "a.mp4"}).save(path)
+    assert open(path).read() == text
+    assert tckpt.StageState.load(path).extra == {"video": "a.mp4"}
+
+
+def test_eigenface_images_equal_jax(tmp_path):
+    cv2 = pytest.importorskip("cv2")
+    art = _artifact(tart, "v1")
+    got = timages.save_eigenface_images(art.components, art.mean_face, art.face_shape,
+                                        str(tmp_path / "t"), prefix="ann_dark_", top_k=3)
+    ref = jimages.save_eigenface_images(art.components, art.mean_face, art.face_shape,
+                                        str(tmp_path / "j"), prefix="ann_dark_", top_k=3)
+    assert [p.split("/")[-1] for p in got] == [p.split("/")[-1] for p in ref] == [
+        "ann_dark_mean_face.jpg", "ann_dark_eigenface_01.jpg", "ann_dark_eigenface_02.jpg",
+        "ann_dark_eigenface_03.jpg"]
+    for a, b in zip(got, ref):
+        assert open(a, "rb").read() == open(b, "rb").read()
+        np.testing.assert_array_equal(timages.imread_gray(a), jimages.imread_gray(b))
+        assert timages.imread_bgr(a).shape == (8, 8, 3)
+    x = np.array([[3.0, 5.0], [7.0, 11.0]])
+    np.testing.assert_array_equal(timages.minmax_to_u8(x), jimages.minmax_to_u8(x))
+    assert timages.minmax_to_u8(x).tolist() == [[0, 63], [127, 255]]
+    assert not timages.minmax_to_u8(np.full((2, 2), 4.0)).any()
+    assert timages.imwrite(str(tmp_path / "one.png"), np.zeros((4, 4), np.uint8))
+    assert cv2.imread(str(tmp_path / "one.png")) is not None

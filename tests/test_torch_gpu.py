@@ -522,3 +522,38 @@ def test_guided_matcher_on_card_equals_the_cpu(cuda_device):
             {k: v for k, v in want.items() if k != "confidence"}
         # NCC values <= 1: cuDNN, cuFFT and cumsum sum in other orders.
         assert abs(got["confidence"] - want["confidence"]) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_haar_detector_on_card_equals_the_cpu(cuda_device, precision):
+    """The 180 x 240 frames of the CPU tests: raw rectangles and grouped
+    boxes on the card equal the port's on the CPU, order included, also
+    under a caller who turned TF32 on; and device halves issued ahead of
+    their host halves give what the blocking call gives."""
+    from haar_scenes import frames180
+
+    from face_detection_recognization_pca_tpu_torch import device
+    from face_detection_recognization_pca_tpu_torch.detect import haar
+
+    frames = frames180()
+    cascade = haar.load_cascade()
+    on_cpu = haar.HaarDetector(cascade, device="cpu")
+    on_card = haar.HaarDetector(cascade, device=cuda_device)
+    before = device.tf32_flags()
+    torch.set_float32_matmul_precision(precision)
+    try:
+        got = {mn: on_card.detect_multi_scale_batch(frames, 1.1, mn) for mn in (0, 5)}
+        staged = on_card.detect_multi_scale_batch(torch.from_numpy(frames).to(cuda_device))
+        handles = [on_card.detect_device(frames[i:i + 2]) for i in (0, 2)]
+        pipelined = [on_card.detect_finish(h) for h in handles]
+        flags_inside = device.tf32_flags()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before["matmul_allow_tf32"]
+        torch.backends.cudnn.allow_tf32 = before["cudnn_allow_tf32"]
+    assert flags_inside["matmul_allow_tf32"] == (precision == "high")  # put back after each call
+    for mn in (0, 5):
+        assert got[mn] == on_cpu.detect_multi_scale_batch(frames, 1.1, mn)
+    assert [len(b) for b in got[5]] == [1, 2, 0, 1]
+    assert staged == got[5] and pipelined[0] + pipelined[1] == got[5]
+    assert handles[0]["rows"].is_pinned() and handles[0]["ready"].query()
