@@ -116,7 +116,47 @@ Phases, each printing a line:
     ``read_detection_json``.  It prints the frames/s of both halves.
     Neither phase launches a hand-written kernel (the Haar arithmetic is
     PyTorch's own operators, as it was XLA's in the JAX package), and both
-    check that.
+    check that;
+13. the CCOEFF detector: ``bench.ccoeff_detect`` (seed 11), 4 uint8 gray
+    1080p frames, 2 persons x 10 templates of 100 x 100 (one shape
+    group), scales 0.5-1.6, 128 candidates, person 0's clean face planted
+    at a seeded place.  Every frame's survivors must hold the planted box
+    (x and y within 3 px, 100 x 100); frame 0's resized levels must equal
+    the CPU's bit for bit; frame 0's top-k per (scale, group) and its
+    survivors must equal the same detector's on the CPU, except for
+    candidates within 1e-4 of the largest |score| of the k-th score (the
+    gap at rank k is printed per (scale, group)).  It prints frames/s,
+    device ms per frame by kernel family (``torch.profiler``), peak memory
+    and the seconds of one pass inside ``utils.profiling.device_trace``,
+    whose trace file must exist;
+14. the enhanced ensemble: ``bench.enhanced_assets`` (seed 12), 2 persons
+    x 77 uint8 BGR 1080p frames with a face of a seeded side of 120-220 px,
+    their Haar crops (77 per person) into ``train_enhanced`` on the card
+    (x 7 augmentation: 1,078 rows, ``n_components`` 100), then 16 of those
+    frames, the persons in turn, through ``scan_frames_enhanced``.  Every frame must give
+    one record, the planted box and person, at or above its threshold;
+    each record's angle must equal the CPU's on the same crop; the model
+    copied to the CPU must give the card's ids and confidences within
+    1e-5.  Then what the model has not seen: 8 fresh frames through
+    ``scan_frames_enhanced`` (a record for each) and 4 whole face patches,
+    which the profile cascade takes for profiles.  Their angles on the card
+    must equal the CPU's, at least one a profile, and the card's ids and
+    confidences the CPU copy's, with no threshold asserted (an id may
+    differ only where the confidence is within 1e-5 of its threshold).  ``save_enhanced`` ->
+    ``load_enhanced`` must give equal arrays.  It prints the training
+    seconds, the scan's frames/s and seconds per stage;
+15. the reference's flow, detect -> train -> recognize, without OpenCV:
+    ``run_pipeline_frames`` on 48 uint8 BGR 1080p frames of one planted
+    person (``bench.pipeline_assets``, seed 13) with a temporary lock
+    directory: 48 faces, ``n_components`` 47, a record per frame with the
+    planted box and the person's name, and ``evaluate_model`` of the
+    trained model on 16 crops of fresh frames at top-1 1.0.  With 16
+    crops of another person added (a reject is right), at the PCA gate
+    (0.8), ``evaluate_model`` of each crop on the card must equal it on
+    the model copied to the CPU: the same id, confidence within 1e-5.  Then
+    ``cli.main(["bench", "--streams", "4", "--size", "1080p"])`` with no
+    ``--device`` must print a JSON line whose self-check holds, and launch
+    ``fused_match`` (``launches_by_path["cli_bench"]``).
 
 The line before the last is a JSON object describing each kernel, with
 its time, its plain version's, ``library_ms``, its HMMA counts and
@@ -134,8 +174,10 @@ sees no CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import importlib.util
+import io
 import json
 import os
 import re
@@ -149,6 +191,7 @@ import numpy as np
 import torch
 
 from face_detection_recognization_pca_tpu_torch import bench, device as port_device
+from face_detection_recognization_pca_tpu_torch.config import RecognizeConfig
 from face_detection_recognization_pca_tpu_torch.detect import haar
 from face_detection_recognization_pca_tpu_torch.detect.template import TemplateDetector
 from face_detection_recognization_pca_tpu_torch.io import native
@@ -162,6 +205,7 @@ from face_detection_recognization_pca_tpu_torch.io.detection_json import (
 from face_detection_recognization_pca_tpu_torch.io.video import VideoMeta
 from face_detection_recognization_pca_tpu_torch.linalg.pca import snapshot_pca
 from face_detection_recognization_pca_tpu_torch.models.eigenfaces import (
+    from_artifact,
     recognize,
     to_artifact,
     train_v1,
@@ -205,6 +249,14 @@ from face_detection_recognization_pca_tpu_torch.recognize.engine import ModelSta
 from face_detection_recognization_pca_tpu_torch.pipeline.tracked_scan import (
     scan_batches_tracked,
 )
+from face_detection_recognization_pca_tpu_torch.detect.ccoeff import CcoeffTemplateDetector
+from face_detection_recognization_pca_tpu_torch.models import enhanced
+from face_detection_recognization_pca_tpu_torch.ops.color import bgr_to_gray_exact
+from face_detection_recognization_pca_tpu_torch.pipeline import cli
+from face_detection_recognization_pca_tpu_torch.pipeline.eval_app import evaluate_model
+from face_detection_recognization_pca_tpu_torch.pipeline.run_pipeline import run_pipeline_frames
+from face_detection_recognization_pca_tpu_torch.pipeline.scan_app import scan_frames_enhanced
+from face_detection_recognization_pca_tpu_torch.utils.profiling import StageTimer, device_trace
 
 CONF_ATOL = 1e-5  # float32 sums in another order than cuBLAS's; cosines ~1
 CONF_ATOL_BF16 = 2e-3  # bf16 operands, against plain with the same rounding
@@ -216,6 +268,10 @@ DETECT_BATCH, DETECT_TEMPLATES, DETECT_SEED = 16, 8, 3
 MULTISCAN_FRAMES, MULTISCAN_BATCH, MULTISCAN_SEED, MULTISCAN_SIDE = 64, 16, 5, 128
 HAAR_BATCH, HAAR_SEED = 16, 5  # the JAX package's bench_haar: batch 16, 544p, seed 5
 PIPELINE_TRAIN_FRAMES, PIPELINE_SCAN_FRAMES, PIPELINE_K = 24, 16, 16
+CCOEFF_BATCH, CCOEFF_SEED, CCOEFF_K = 4, 11, 128
+CCOEFF_BAND = 1e-4  # of the largest |score|: a near-tie at rank k
+ENHANCED_SCAN, ENHANCED_SEED, ENHANCED_K = 16, 12, 100
+FLOW_FRAMES, FLOW_SEED = 48, 13
 GALLERY_B, GALLERY_K, GALLERY_N, GALLERY_SEED = 1024, 128, 1_048_573, 9
 JAX_SHAPE_N = 131072  # the JAX package's per-chip target (bench_large_gallery)
 TRAIN_N, TRAIN_SIDE, TRAIN_K, TRAIN_SEED = 2048, 64, 128, 6
@@ -1244,6 +1300,272 @@ def phase_haar_pipeline(dev, card: str) -> None:
           f"{PIPELINE_SCAN_FRAMES / scan_seconds} frames/s (host clock); card {card}")
 
 
+def _band_boxes(parts, k: int, band_of) -> set:
+    """The boxes, in frame coordinates, of every top-(k + 1) member within
+    its part's band of the k-th score."""
+    boxes = set()
+    for (scale, (th, tw), (sh, sw), vals, idx, _), band in zip(parts, band_of):
+        ow, oh = sw - tw + 1, sh - th + 1
+        for j in idx[np.abs(vals - vals[k - 1]) <= band]:
+            p = int(j) % (oh * ow)
+            boxes.add((int((p % ow) / scale), int((p // ow) / scale), int(tw / scale),
+                       int(th / scale)))
+    return boxes
+
+
+def phase_ccoeff(dev, card: str) -> None:
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = bench.ccoeff_detect(CCOEFF_BATCH, bench.SIZES["1080p"], CCOEFF_SEED, device=dev)
+    det, frames, plants = result["detector"], result["frames"], result["plants"]
+    check(det.max_candidates == CCOEFF_K, f"k {det.max_candidates}")
+    for i, (boxes, plant) in enumerate(zip(result["detections"], plants)):
+        check(len(bench.ccoeff_planted(boxes, plant)) >= 1,
+              f"frame {i}: survivors {boxes[:8]}, planted (y, x) {plant.tolist()}")
+    on_cpu = CcoeffTemplateDetector(result["templates"], device="cpu")
+    for (s_card, lv_card), (s_cpu, lv_cpu) in zip(det.levels(frames[0]), on_cpu.levels(frames[0])):
+        check(torch.equal(lv_card.cpu(), lv_cpu), f"scale {s_card}: levels equal the CPU's")
+    parts_card, parts_cpu = det.topk(frames[0]), on_cpu.topk(frames[0])
+    gaps, band_of, differ = [], [], 0
+    for pc, pp in zip(parts_card, parts_cpu):
+        vals_c, idx_c, vals_p, idx_p, peak = pc[3], pc[4], pp[3], pp[4], pp[5]
+        band = CCOEFF_BAND * peak
+        band_of.append(band)
+        gaps.append(float(vals_p[CCOEFF_K - 1] - vals_p[CCOEFF_K]) / peak)
+        odd = set(idx_c[:CCOEFF_K].tolist()) ^ set(idx_p[:CCOEFF_K].tolist())
+        differ += len(odd)
+        for j in odd:
+            v = vals_c[idx_c == j] if j in idx_c else vals_p[idx_p == j]
+            check(abs(float(v[0]) - float(vals_p[CCOEFF_K - 1])) <= band,
+                  f"scale {pc[0]}: top-k member {j} differs and is no near-tie")
+        common = {int(j): float(v) for j, v in zip(idx_p[:CCOEFF_K], vals_p[:CCOEFF_K])}
+        d = [abs(float(v) - common[int(j)]) for j, v in zip(idx_c[:CCOEFF_K], vals_c[:CCOEFF_K])
+             if int(j) in common]
+        check(max(d) <= band, f"scale {pc[0]}: scores within {CCOEFF_BAND} of the largest")
+    surv = {"card": set(det.select(parts_card)), "cpu": set(on_cpu.select(parts_cpu))}
+    odd_boxes = surv["card"] ^ surv["cpu"]
+    near = _band_boxes(parts_card, CCOEFF_K, band_of) | _band_boxes(parts_cpu, CCOEFF_K, band_of)
+    check(odd_boxes <= near, f"survivors differ beyond near-ties: {sorted(odd_boxes - near)}")
+    check(surv["card"] == set(result["detections"][0]), "detect equals select(topk)")
+
+    rows = bench.traced_kernels(lambda: det.detect(frames[0]), 2)
+    check(bool(rows), "torch.profiler saw the CCOEFF detector's kernels")
+    with tempfile.TemporaryDirectory() as logdir:
+        t1 = time.perf_counter()
+        with device_trace(logdir):
+            for f in frames:
+                det.detect(f)
+        trace_s = time.perf_counter() - t1
+        trace = os.path.join(logdir, "trace.json")
+        check(os.path.exists(trace), "device_trace wrote its trace file")
+        trace_mb = os.path.getsize(trace) / 1e6
+    print(f"[ccoeff] 1080p x {CCOEFF_BATCH} frames, {det.n_templates} templates of 100 x 100 in "
+          f"{len(det.groups)} group, scales {list(det.scales)}, k {CCOEFF_K}: every frame's "
+          f"survivors hold the planted box ({[len(b) for b in result['detections']]} survivors); "
+          f"frame 0 levels equal the CPU's bit for bit; gap at rank k per (scale, group) "
+          f"{['%.2e' % g for g in gaps]} of the largest |score|, {differ} top-k members differ "
+          f"from the CPU's (all near-ties), survivors {len(surv['card'])} card / "
+          f"{len(surv['cpu'])} CPU, differing {sorted(odd_boxes)}; {result['fps']} frames/s "
+          f"({result['ms_per_frame']} ms per frame, best of 3, host NMS inside); device ms per "
+          f"frame by family {json.dumps(bench.kernel_families(rows))} in "
+          f"{sum(c for _, _, c in rows):.0f} kernels; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; one pass inside device_trace "
+          f"{trace_s:.2f} s ({trace_mb:.1f} MB trace); phase {time.perf_counter() - t0:.2f} s; "
+          f"card {card}")
+    del result, det
+    torch.cuda.empty_cache()
+
+
+def phase_enhanced(dev, card: str) -> None:
+    h, w = bench.SIZES["1080p"]
+    t0 = time.perf_counter()
+    train_frames, frames, plants, person_ids, fresh_frames, profile_crops = (
+        bench.enhanced_assets(ENHANCED_SCAN, (h, w), ENHANCED_SEED))
+    det = haar.HaarDetector(device=dev)
+    fused_match.launches = gallery_match.launches = 0
+    crops, labels = [], []
+    for label, (person_frames, person_plants) in enumerate(train_frames):
+        found, found_crops = detect_frames(
+            iter(person_frames), VideoMeta(w, h, 30.0, len(person_frames)), detector=det,
+            progress_every=0)
+        # The planted face's crop of every frame.
+        keep = [c for r, c in zip(found.faces, found_crops) if bench.haar_planted_boxes(
+            [(r.x, r.y, r.width, r.height)], person_plants[r.frame_number])]
+        check(len(keep) == bench.ENHANCED_PER_PERSON and len(found_crops) == len(keep),
+              f"person {label}: {len(keep)} planted crops of {len(found_crops)}")
+        crops += [bgr_to_gray_exact(torch.from_numpy(c).to(dev)) for c in keep]
+        labels += [label] * len(keep)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    model = enhanced.train_enhanced(crops, labels, person_ids, n_components=ENHANCED_K, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    rows = {b: tuple(br.gallery.shape) for b, br in model.branches.items()}
+    check(all(r[0] == 7 * len(crops) == 1078 for r in rows.values()), f"gallery rows {rows}")
+
+    timer = StageTimer()
+    t2 = time.perf_counter()
+    records = scan_frames_enhanced(iter(frames), model, detector=det, timer=timer)
+    scan_s = time.perf_counter() - t2
+    names = {v: k for k, v in person_ids.items()}
+    check([r["frame_number"] for r in records] == list(range(ENHANCED_SCAN)),
+          f"one record per frame: {[r['frame_number'] for r in records]}")
+    on_cpu = model.to("cpu")
+    crops_cpu, profiles = [], []
+    for r, plant in zip(records, plants):
+        i, box = r["frame_number"], (r["x"], r["y"], r["width"], r["height"])
+        check(len(bench.haar_planted_boxes([box], plant)) == 1,
+              f"frame {i}: box {box}, planted {plant.tolist()}")
+        want = names[i % len(names)]
+        check(r["person_name"] == want, f"frame {i}: named {r['person_name']}, want {want}")
+        profile = r["angle"] != "frontal"
+        limit = enhanced.PROFILE_THRESHOLD if profile else enhanced.FRONTAL_THRESHOLD
+        check(r["confidence"] >= limit, f"frame {i}: confidence {r['confidence']} < {limit}")
+        x, y, bw, bh = box
+        crop = torch.from_numpy(np.ascontiguousarray(frames[i, y:y + bh, x:x + bw, 0]))
+        check(enhanced.detect_face_angle(crop, "cpu") == r["angle"], f"frame {i}: angle")
+        crops_cpu.append(crop)
+        profiles.append(profile)
+    again = enhanced.recognize_enhanced_batch(on_cpu, crops_cpu, profiles)
+    err = max(abs(c - r["confidence"]) for (_, _, c), r in zip(again, records))
+    check([p for p, _, _ in again] == [r["person_id"] for r in records] and err <= CONF_ATOL,
+          f"the model on the CPU: ids {[p for p, _, _ in again]}, max|dconf| {err}")
+
+    # What the model has not seen: fresh frames through the scan, and whole
+    # face patches the profile cascade takes for profiles.  The card against
+    # the CPU copy, with no threshold held: an id may differ only where the
+    # confidence is within CONF_ATOL of its threshold.
+    fresh = scan_frames_enhanced(iter(fresh_frames), model, detector=det)
+    check(sorted({r["frame_number"] for r in fresh}) == list(range(len(fresh_frames))),
+          f"a record for every fresh frame: {[r['frame_number'] for r in fresh]}")
+    probes = [np.ascontiguousarray(fresh_frames[r["frame_number"], r["y"]:r["y"] + r["height"],
+                                                r["x"]:r["x"] + r["width"], 0]) for r in fresh]
+    probes += profile_crops
+    angles = [r["angle"] for r in fresh] + [
+        enhanced.detect_face_angle(torch.from_numpy(c).to(dev), dev) for c in profile_crops]
+    angles_cpu = [enhanced.detect_face_angle(c, "cpu") for c in probes]
+    check(angles == angles_cpu, f"unseen crops' angles {angles}, on the CPU {angles_cpu}")
+    flags = [a != "frontal" for a in angles]
+    check(any(flags), f"a crop the profile cascade accepts: {angles}")
+    got = [(r["person_id"], r["person_name"], r["confidence"]) for r in fresh]
+    got += enhanced.recognize_enhanced_batch(model, profile_crops, flags[len(fresh):])
+    want = enhanced.recognize_enhanced_batch(on_cpu, probes, flags)
+    probe_err = max(abs(a[2] - b[2]) for a, b in zip(got, want))
+    check(probe_err <= CONF_ATOL, f"unseen crops: max|dconf| {probe_err} against the CPU")
+    for j, ((pid, _, _), (want_id, _, conf), profile) in enumerate(zip(got, want, flags)):
+        limit = enhanced.PROFILE_THRESHOLD if profile else enhanced.FRONTAL_THRESHOLD
+        check(pid == want_id or abs(conf - limit) <= CONF_ATOL,
+              f"unseen crop {j}: id {pid} on the card, {want_id} on the CPU (confidence {conf})")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "enhanced_model.pkl")
+        enhanced.save_enhanced(model, path)
+        back = enhanced.load_enhanced(path, dev)
+    for b, br in model.branches.items():
+        other = back.branches[b]
+        check(all(torch.equal(a, o) for a, o in (
+            (br.components, other.components), (br.gallery, other.gallery),
+            (br.projection_mean, other.projection_mean), (br.scaler.mean, other.scaler.mean),
+            (br.scaler.scale, other.scaler.scale))), f"{b}: the pickle gives equal arrays")
+    check(np.array_equal(back.labels, model.labels), "the pickle gives equal labels")
+    check(fused_match.launches == 0 and gallery_match.launches == 0,
+          "the enhanced flow launches no hand-written kernel")
+    print(f"[enhanced] 2 persons x {bench.ENHANCED_PER_PERSON} 1080p frames -> {len(crops)} Haar crops "
+          f"(sides 120-220) -> train_enhanced on the card in {train_s:.3f} s (gallery rows "
+          f"{rows['hog'][0]}, k per branch "
+          f"{ {b: br.components.shape[0] for b, br in model.branches.items()} }); "
+          f"{ENHANCED_SCAN} BGR 1080p frames through scan_frames_enhanced: one record per frame "
+          f"with the planted box and person, angles {sorted(set(r['angle'] for r in records))} "
+          f"equal to the CPU's, min confidence {min(r['confidence'] for r in records):.6f}, the "
+          f"model on the CPU gives the same ids, max|dconf| {err:.3g}; {len(fresh)} records of "
+          f"{len(fresh_frames)} fresh frames and {len(profile_crops)} whole face patches: angles "
+          f"{angles} equal to the CPU's, ids {[p for p, _, _ in got]}, "
+          f"confidences {[round(c, 6) for _, _, c in got]} (profile threshold "
+          f"{enhanced.PROFILE_THRESHOLD}, frontal {enhanced.FRONTAL_THRESHOLD}), max|dconf| "
+          f"{probe_err:.3g} against the CPU copy; the pickle round trip "
+          f"gives equal arrays; {ENHANCED_SCAN / scan_s} frames/s with the copies inside (host "
+          f"clock); seconds per stage "
+          f"{json.dumps({k: round(v, 4) for k, v in timer.totals.items()})}; phase "
+          f"{time.perf_counter() - t0:.2f} s; card {card}")
+
+
+def phase_flow(dev, card: str) -> int:
+    h, w = bench.SIZES["1080p"]
+    t0 = time.perf_counter()
+    frames, plants, eval_crops, eval_ids = bench.pipeline_assets(FLOW_FRAMES, (h, w), FLOW_SEED)
+    person = f"person{bench.PIPELINE_PERSON}"
+    det = haar.HaarDetector(device=dev)
+    fused_match.launches = gallery_match.launches = 0
+    with tempfile.TemporaryDirectory() as lock_dir:
+        t1 = time.perf_counter()
+        out = run_pipeline_frames(frames, VideoMeta(w, h, 30.0, FLOW_FRAMES), person,
+                                  lock_dir=lock_dir, detector=det, device=dev)
+        flow_s = time.perf_counter() - t1
+        written = sorted(os.listdir(os.path.join(lock_dir, person)))
+    check(out["faces_detected"] == FLOW_FRAMES, f"{out['faces_detected']} faces detected")
+    check(out["n_components"] == min(50, FLOW_FRAMES - 1), f"n_components {out['n_components']}")
+    check(written == sorted([f"{person}_faces_detection.json", "face_model.pkl",
+                             f"{person}_model_info.json"]), f"files written {written}")
+    records = out["records"]
+    check([r["frame_number"] for r in records] == list(range(FLOW_FRAMES)),
+          f"a record per frame: {[r['frame_number'] for r in records]}")
+    for r, plant in zip(records, plants):
+        box = (r["x"], r["y"], r["width"], r["height"])
+        check(len(bench.haar_planted_boxes([box], plant)) == 1 and r["person_name"] == person,
+              f"frame {r['frame_number']}: box {box} named {r['person_name']}, planted "
+              f"{plant.tolist()}")
+    model = from_artifact(out["artifact"], torch.float32, dev)
+    own = eval_ids.count(0)
+    stats = evaluate_model(model, eval_crops[:own], eval_ids[:own])
+    check(stats["top1_accuracy"] == 1.0, f"evaluate_model {stats}")
+    # Both persons at the PCA gate, crop by crop, against the model copied
+    # to the CPU: a one-person model's id is 0 or -1, so top-1 and the
+    # reject rate of one crop name its id.
+    gate = RecognizeConfig().pca_gate
+    gated = evaluate_model(model, eval_crops, eval_ids, threshold=gate)
+    on_cpu = from_artifact(out["artifact"], torch.float32, "cpu")
+    eval_err = 0.0
+    for j, (crop, want) in enumerate(zip(eval_crops, eval_ids)):
+        a = evaluate_model(model, [crop], [want], threshold=gate)
+        b = evaluate_model(on_cpu, [crop], [want], threshold=gate)
+        eval_err = max(eval_err, abs(a["mean_confidence"] - b["mean_confidence"]))
+        check(a["reject_rate"] == b["reject_rate"]
+              or abs(b["mean_confidence"] - gate) <= CONF_ATOL,
+              f"eval crop {j}: card {a}, CPU {b}")
+    check(eval_err <= CONF_ATOL, f"evaluate_model: max|dconf| {eval_err} against the CPU")
+    check(fused_match.launches == 0 and gallery_match.launches == 0,
+          "the flow launches no hand-written kernel")
+    print(f"[pipeline] run_pipeline_frames on {FLOW_FRAMES} BGR 1080p frames of {person}: "
+          f"{out['faces_detected']} faces, n_components {out['n_components']}, a record per frame "
+          f"with the planted box and name (min confidence "
+          f"{min(r['confidence'] for r in records):.6f}, min template confidence "
+          f"{min(r['template_match_confidence'] for r in records):.6f}), files {written}; "
+          f"{FLOW_FRAMES / flow_s} frames/s for detect + train + scan (host clock); "
+          f"evaluate_model on {own} fresh crops {json.dumps(stats)}; with {len(eval_crops) - own} "
+          f"of person{bench.PIPELINE_STRANGER} at the gate {gate} {json.dumps(gated)}, crop by "
+          f"crop the CPU copy's ids, max|dconf| {eval_err:.3g}; card {card}")
+
+    fused_match.launches = gallery_match.launches = 0
+    buf = io.StringIO()
+    t2 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", "--streams", "4", "--size", "1080p"])
+    bench_s = time.perf_counter() - t2
+    launches = fused_match.launches
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    detail = line["detail"]
+    check(rc == 0 and detail["self_check"] == "ok" and line["value"] > 0,
+          f"cli bench self-check: {detail['self_check']}")
+    check(launches >= 1 and launches == detail["fused_match_launches"],
+          f"cli bench launched fused_match {launches} times")
+    check(detail["device"] == card, f"cli bench ran on {detail['device']}")
+    print(f"[pipeline] cli.main(['bench', '--streams', '4', '--size', '1080p']) with no --device: "
+          f"{line['value']} {line['unit']}, self-check {detail['self_check']}, "
+          f"{detail['frames_per_dispatch']} frames per dispatch, step {detail['step_ms']} ms, "
+          f"fused_match launches {launches}, {bench_s:.2f} s; phase "
+          f"{time.perf_counter() - t0:.2f} s; card {card}")
+    return launches
+
+
 def main() -> int:
     dev = phase_environment()
     card = torch.cuda.get_device_name(0)
@@ -1264,6 +1586,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_haar(dev, card)
     phase_haar_pipeline(dev, card)
+    phase_ccoeff(dev, card)
+    phase_enhanced(dev, card)
+    torch.cuda.empty_cache()
+    by_path["cli_bench"] = phase_flow(dev, card)
     print(json.dumps({"kernels": [
         {**KERNELS["fused_match"], "launches": sum(by_path.values()),
          "launches_by_path": by_path, **fused, "d16384": d16384, "hmma": hmma["fused_match"]},

@@ -37,6 +37,14 @@ at a seeded side and place (:func:`haar_assets`), through
 :class:`..detect.haar.HaarDetector` blocking and pipelined
 (:func:`haar_detect`); :func:`haar_bgr_frames` makes the same scenes as
 uint8 BGR frames on the host for the apps that stand on the detector.
+
+The CCOEFF detector (``detect/ccoeff``): noise frames each holding one
+clean :func:`_person_face`, against noisy copies of every person's face
+as templates (:func:`ccoeff_assets`, :func:`ccoeff_detect`).  The
+enhanced ensemble: :func:`haar_bgr_frames` scenes of several persons at
+seeded sides, to train on their detected crops and to scan
+(:func:`enhanced_assets`).  The reference's flow, detect -> train ->
+recognize: :func:`pipeline_assets`.
 """
 
 from __future__ import annotations
@@ -394,10 +402,11 @@ def traced_kernels(fn: Callable[[], object], calls: int) -> list:
 
 def kernel_families(rows: Sequence[Tuple[str, float, float]]) -> Dict[str, float]:
     """Device ms per family of GPU kernels, from :func:`traced_kernels`
-    rows, by name: cuFFT's (``fft``), GEMMs (``matmul``), reductions,
-    elementwise kernels, copies, and the rest."""
+    rows, by name: cuFFT's (``fft``), GEMMs (``matmul``), top-k and sorts
+    (``topk``), reductions, elementwise kernels, copies, and the rest."""
     words = (
         ("fft", ("fft",)),
+        ("topk", ("topk", "sort", "radix")),
         ("matmul", ("gemm", "cutlass", "xmma", "cublas")),
         ("reduce", ("reduce",)),
         ("elementwise", ("elementwise", "vectorized")),
@@ -860,15 +869,16 @@ def haar_assets(batch: int, size: Tuple[int, int], seed: int, device: torch.devi
     return frames, plants
 
 
-def haar_bgr_frames(n: int, size: Tuple[int, int], seed: int, persons: Sequence[int] = (0,)):
+def haar_bgr_frames(n: int, size: Tuple[int, int], seed: int, persons: Sequence[int] = (0,),
+                    sides: Tuple[int, int] = (60, 220)):
     """``(frames, plants)`` on the host, as a decoder hands them over:
     ``(n, H, W, 3)`` uint8 BGR frames of grey noise ``110 + 25 N(0, 1)``
     (B = G = R), frame i holding :func:`haar_face` of person
-    ``persons[i % len(persons)]`` at ``plants[i]``, all from
-    ``np.random.default_rng(seed)``."""
+    ``persons[i % len(persons)]`` at ``plants[i]`` (:func:`haar_plants`
+    with ``sides``), all from ``np.random.default_rng(seed)``."""
     h, w = size
     rng = np.random.default_rng(seed)
-    plants = haar_plants(n, size, rng)
+    plants = haar_plants(n, size, rng, sides)
     gray = np.clip(np.rint(rng.normal(110.0, 25.0, (n, h, w)).astype(np.float32)), 0, 255)
     gray = gray.astype(np.uint8)
     for i, (y, x, patch, side) in enumerate(plants):
@@ -932,3 +942,128 @@ def haar_detect(
         "handle": handle,
         "raw": np.bincount(handle["rows"][:, 0].numpy(), minlength=batch).tolist(),
     }
+
+
+# The CCOEFF configuration: 2 persons x 10 templates (the reference's cap
+# per directory) of 100 x 100, one shape group; a survivor names the plant
+# within 3 px; best of 3 timed passes.
+CCOEFF_PERSONS, CCOEFF_PER_PERSON, CCOEFF_SIDE, CCOEFF_TOL, CCOEFF_ITERS = 2, 10, 100, 3, 3
+# The enhanced configuration: 77 training frames per person, the shipped
+# lock model's face count.
+ENHANCED_PER_PERSON = 77
+# The reference's flow trains this person; evaluation adds another's crops.
+PIPELINE_PERSON, PIPELINE_STRANGER = 1, 2
+
+
+def ccoeff_assets(batch: int, size: Tuple[int, int], seed: int):
+    """``(frames, templates, plants)`` for the CCOEFF detector, all on the
+    host from ``np.random.default_rng(seed)``: :data:`CCOEFF_PER_PERSON`
+    templates of each of :data:`CCOEFF_PERSONS` persons (:func:`_person_face`
+    of :data:`CCOEFF_SIDE` px plus N(0, 6), person after person), and
+    ``(batch, H, W)`` uint8 gray frames of noise ``110 + 25 N(0, 1)``
+    (rounded), frame i holding person 0's clean face at ``plants[i]`` =
+    (y, x)."""
+    h, w = size
+    side = CCOEFF_SIDE
+    rng = np.random.default_rng(seed)
+    faces = [_person_face(p, side) for p in range(CCOEFF_PERSONS)]
+    templates = [
+        np.clip(face + rng.normal(0, 6, face.shape), 0, 255).astype(np.uint8)
+        for face in faces for _ in range(CCOEFF_PER_PERSON)
+    ]
+    plants = np.stack([rng.integers(0, h - side + 1, batch), rng.integers(0, w - side + 1, batch)],
+                      axis=1)
+    frames = np.clip(np.rint(rng.normal(110.0, 25.0, (batch, h, w))), 0, 255).astype(np.uint8)
+    for i, (y, x) in enumerate(plants):
+        frames[i, y:y + side, x:x + side] = faces[0]
+    return frames, templates, plants
+
+
+def ccoeff_planted(boxes, plant) -> list:
+    """Those of ``boxes`` (x, y, w, h) at the planted (y, x) within
+    :data:`CCOEFF_TOL` px, of the template's size."""
+    y, x = (int(v) for v in plant)
+    return [b for b in boxes if abs(b[0] - x) <= CCOEFF_TOL and abs(b[1] - y) <= CCOEFF_TOL
+            and b[2] == b[3] == CCOEFF_SIDE]
+
+
+def ccoeff_detect(
+    batch: int, size: Tuple[int, int], seed: int, device: Optional[torch.device] = None
+) -> Dict[str, object]:
+    """CCOEFF detection throughput on :func:`ccoeff_assets`: every frame
+    through :meth:`CcoeffTemplateDetector.detect` (one upload and one
+    download per frame, host NMS inside), best of :data:`CCOEFF_ITERS`
+    passes over the batch after one warm-up pass.  ``device=None`` means
+    the CUDA device."""
+    from face_detection_recognization_pca_tpu_torch.detect.ccoeff import CcoeffTemplateDetector
+
+    device = resolve_device(device)
+    frames, templates, plants = ccoeff_assets(batch, size, seed)
+    det = CcoeffTemplateDetector(templates, device=device)
+    out = [det.detect(f) for f in frames]  # warm-up: template spectra, FFT plans
+    dt = float("inf")
+    for _ in range(CCOEFF_ITERS):
+        _synchronize(device)
+        t0 = time.perf_counter()
+        out = [det.detect(f) for f in frames]
+        dt = min(dt, time.perf_counter() - t0)
+    return {
+        "fps": batch / dt,
+        "ms_per_frame": dt / batch * 1e3,
+        "size": tuple(size),
+        "batch": batch,
+        "templates": templates,
+        "detections": out,
+        "plants": plants,
+        "frames": frames,
+        "detector": det,
+    }
+
+
+def enhanced_assets(n_scan: int, size: Tuple[int, int], seed: int):
+    """``(train, scan_frames, scan_plants, person_id_map, fresh_frames,
+    profile_crops)`` for the enhanced ensemble, uint8 BGR frames of
+    ``size`` on the host: ``train`` holds for persons 1 and 2 (``person1``,
+    ``person2``, ids 0 and 1) ``(frames, plants)`` of
+    :func:`haar_bgr_frames` with :data:`ENHANCED_PER_PERSON` frames of that
+    person's face at a seeded side of 120-220 px (seed ``seed + 1 + id``),
+    whose detected crops train the model.  The scan's ``n_scan`` frames are
+    training frames of the persons in turn, drawn from
+    ``np.random.default_rng(seed)``: as the reference scans the video its
+    model was trained on.  What the model has not seen: 8
+    ``fresh_frames`` of the persons in turn (seed ``seed + 3``; the
+    ensemble's similarity, ``0.7 cos + 0.3 / (1 + L2)``, puts such a crop
+    near 0.62-0.77 against the 0.6 threshold), and as ``profile_crops`` the
+    whole uint8 gray :func:`haar_face` patches of the first 4 of them,
+    which the profile cascade takes for right profiles."""
+    persons = (1, 2)
+    train = [haar_bgr_frames(ENHANCED_PER_PERSON, size, seed + 1 + i, persons=(p,),
+                             sides=(120, 220))
+             for i, p in enumerate(persons)]
+    rng = np.random.default_rng(seed)
+    pick = [(i % len(persons), int(rng.integers(ENHANCED_PER_PERSON))) for i in range(n_scan)]
+    scan = np.stack([train[p][0][j] for p, j in pick])
+    plants = np.stack([train[p][1][j] for p, j in pick])
+    fresh, fresh_plants = haar_bgr_frames(8, size, seed + 3, persons=persons, sides=(120, 220))
+    profiles = [haar_face(int(side), persons[i % len(persons)])
+                for i, side in enumerate(fresh_plants[:4, 3])]
+    return train, scan, plants, {f"person{p}": i for i, p in enumerate(persons)}, fresh, profiles
+
+
+def pipeline_assets(n_frames: int, size: Tuple[int, int], seed: int):
+    """``(frames, plants, eval_crops, eval_ids)`` for the reference's flow on
+    :data:`PIPELINE_PERSON`: :func:`haar_bgr_frames` of that person (seed
+    ``seed``) to detect, train and scan; to evaluate, 16 BGR crops of the
+    planted face's nominal square cut from as many fresh frames of the
+    person (seed ``seed + 1``, id 0), then 16 of
+    :data:`PIPELINE_STRANGER` (seed ``seed + 2``, id -1: a reject is
+    right)."""
+    frames, plants = haar_bgr_frames(n_frames, size, seed, persons=(PIPELINE_PERSON,))
+    crops, ids = [], []
+    for j, (person, pid) in enumerate(((PIPELINE_PERSON, 0), (PIPELINE_STRANGER, -1))):
+        fresh, fresh_plants = haar_bgr_frames(16, size, seed + 1 + j, persons=(person,))
+        for frame, (y, x, patch, side) in zip(fresh, fresh_plants):
+            m = (patch - side) // 2
+            crops.append(np.ascontiguousarray(frame[y + m:y + m + side, x + m:x + m + side]))
+        ids += [pid] * 16
+    return frames, plants, crops, ids

@@ -19,6 +19,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from face_detection_recognization_pca_tpu_torch.device import exact_float32, resolve_device
+
 
 @functools.lru_cache(maxsize=32)
 def _dft_mats_np(n: int, out: int):
@@ -34,7 +36,7 @@ def make_circular_correlator(
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build ``fn(W (B, n, n)) -> (B, out, out)`` computing the valid
     circular correlation of each slice with ``kernel`` (h, w <= n), with
-    its constants on ``device``.
+    its constants on ``device`` (``None``: the CUDA device).
 
     Exact when ``kernel_side + out - 1 <= n`` (alias-free).
     """
@@ -44,6 +46,7 @@ def make_circular_correlator(
     kpad = np.zeros((n, n), np.float64)
     kpad[:kh, :kw] = np.asarray(kernel, np.float64)
     kf = np.fft.fft2(kpad)
+    device = resolve_device(device)
 
     def dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -89,8 +92,6 @@ def dft_correlate_valid(
     the ``rfft2`` route instead (:mod:`..detect.template`); this function
     is kept as the same operation in matmuls, and runs them in full
     float32."""
-    from face_detection_recognization_pca_tpu_torch.device import exact_float32
-
     f = frames.to(torch.float32)
     b, h, w = f.shape
     t, th, tw = kernels.shape

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import collections
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,17 +26,18 @@ _COEF_SCALE = 1 << _COEF_BITS  # 2048
 
 
 @functools.lru_cache(maxsize=256)
-def _fixed_point_coeffs(src: int, dst: int):
+def _fixed_point_coeffs(src: int, dst: int, step: Optional[float] = None):
     """Per output index, the pair of source indices and their fixed-point
     weights as OpenCV computes them: ``(s0, s1, w0, w1)`` numpy arrays,
-    both indices clamped into the image.
+    both indices clamped into the image.  ``step`` is the source step per
+    output pixel, ``src / dst`` unless given (``1 / fx``).
 
     At a clamped border OpenCV keeps the split pair ``(2048 - r, r)`` of
     the unclamped fraction and points both indices at the border row, so
     in the vertical pass each term is truncated on its own.  That loses
     one step on about 0.1% of border pixels against a single 2048-weight
     term, and is reproduced here."""
-    scale = src / dst  # double, like cv2
+    scale = src / dst if step is None else step  # double, like cv2
     d = np.arange(dst, dtype=np.float64)
     f = ((d + 0.5) * scale - 0.5).astype(np.float32)
     s = np.floor(f).astype(np.int64)
@@ -54,13 +55,70 @@ def resize_bilinear_u8_exact(img: torch.Tensor, dsize: Tuple[int, int]) -> torch
     """``cv2.resize(img, dsize)`` (INTER_LINEAR) of uint8 ``(..., H, W)``
     gray images, bit for bit, on the device ``img`` lies on; ``dsize`` is
     ``(width, height)``.  Returns uint8 ``(..., height, width)``."""
-    dw, dh = int(dsize[0]), int(dsize[1])
+    return _resize_u8(img, int(dsize[0]), int(dsize[1]), None, None)
+
+
+def _cv_round(v: float) -> int:
+    # saturate_cast<int>(double): cvRound, half to even.
+    return int(np.rint(v))
+
+
+def resize_bilinear_u8_exact_scale(img: torch.Tensor, fx: float, fy: float) -> torch.Tensor:
+    """``cv2.resize(img, None, fx=fx, fy=fy)`` (INTER_LINEAR) of uint8
+    ``(..., H, W)`` gray images, bit for bit, on ``img``'s device.
+
+    The output is ``saturate_cast<int>(W * fx)`` wide (half to even) and
+    the source step is ``1 / fx``, as OpenCV takes it when no ``dsize`` is
+    given.  A step of exactly 2 on both axes is OpenCV's ``INTER_AREA``
+    fast path: 2 x 2 means ``(a + b + c + d + 2) >> 2``, and an output
+    pixel whose block leaves the image averages the pixels inside it with
+    round half to even."""
+    sh, sw = img.shape[-2:]
+    dw, dh = _cv_round(sw * fx), _cv_round(sh * fy)
+    if (dw, dh) == (sw, sh):
+        return img.clone()
+    step_x, step_y = 1.0 / fx, 1.0 / fy
+    if step_x == 2.0 and step_y == 2.0:
+        return _area_half(img, dh, dw)
+    return _resize_u8(img, dw, dh, step_x, step_y)
+
+
+def _area_half(img: torch.Tensor, dh: int, dw: int) -> torch.Tensor:
+    """OpenCV's ``resizeAreaFast`` at 2 x 2 for uint8."""
+    sh, sw = img.shape[-2:]
+    x = img.to(torch.int32)
+    fh, fw = min(dh, sh // 2), min(dw, sw // 2)
+    out = torch.zeros((*img.shape[:-2], dh, dw), dtype=torch.int32, device=img.device)
+    full = x[..., : 2 * fh, : 2 * fw]
+    blocks = full[..., 0::2, 0::2] + full[..., 0::2, 1::2] + full[..., 1::2, 0::2] + full[..., 1::2, 1::2]
+    out[..., :fh, :fw] = torch.bitwise_right_shift(blocks + 2, 2)
+    if (fh, fw) != (dh, dw):
+        # The blocks that leave the image: the mean of the pixels inside,
+        # rounded half to even (saturate_cast<uchar> of a float).
+        pad = torch.zeros((*img.shape[:-2], 2 * dh, 2 * dw), dtype=torch.int32, device=img.device)
+        cnt = torch.zeros((2 * dh, 2 * dw), dtype=torch.int32, device=img.device)
+        ph, pw = min(sh, 2 * dh), min(sw, 2 * dw)
+        pad[..., :ph, :pw] = x[..., :ph, :pw]
+        cnt[:ph, :pw] = 1
+        s = pad[..., 0::2, 0::2] + pad[..., 0::2, 1::2] + pad[..., 1::2, 0::2] + pad[..., 1::2, 1::2]
+        c = cnt[0::2, 0::2] + cnt[0::2, 1::2] + cnt[1::2, 0::2] + cnt[1::2, 1::2]
+        edge = torch.round(s.to(torch.float32) / c.clamp_min(1).to(torch.float32)).to(torch.int32)
+        edge = torch.where(c > 0, edge, 0)
+        mask = torch.ones((dh, dw), dtype=torch.bool, device=img.device)
+        mask[:fh, :fw] = False
+        out = torch.where(mask, edge, out)
+    return out.clamp(0, 255).to(torch.uint8)
+
+
+def _resize_u8(
+    img: torch.Tensor, dw: int, dh: int, step_x: Optional[float], step_y: Optional[float]
+) -> torch.Tensor:
     sh, sw = img.shape[-2:]
 
     def dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(img.device)
 
-    sx, sx1, ax0, ax1 = (dev(a) for a in _fixed_point_coeffs(sw, dw))
+    sx, sx1, ax0, ax1 = (dev(a) for a in _fixed_point_coeffs(sw, dw, step_x))
     x = img.to(torch.int32)
     # Horizontal pass: a0 * p0 + a1 * p1 <= 2049 * 255 in int32.  Every
     # value below is non-negative, so the arithmetic shifts truncate.
@@ -74,7 +132,7 @@ def resize_bilinear_u8_exact(img: torch.Tensor, dsize: Tuple[int, int]) -> torch
         # Vertical pass as OpenCV's int16 mulhi SIMD does it: the rows are
         # shifted by 4 first, each b * r product is truncated at >> 16,
         # and the last 2 bits round half-up.
-        sy, sy1, by0, by1 = (dev(a) for a in _fixed_point_coeffs(sh, dh))
+        sy, sy1, by0, by1 = (dev(a) for a in _fixed_point_coeffs(sh, dh, step_y))
         r0 = shift(rows[..., sy, :], 4)
         r1 = shift(rows[..., sy1, :], 4)
         m = shift(by0[:, None] * r0, 16) + shift(by1[:, None] * r1, 16)

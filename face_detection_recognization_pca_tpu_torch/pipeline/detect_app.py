@@ -52,6 +52,39 @@ log = get_logger("fdrp.detect")
 DETECT_BATCH = 16
 
 
+def haar_batches(
+    frames: Iterable[np.ndarray],
+    detector: HaarDetector,
+    config: PipelineConfig,
+    max_frames: Optional[int] = None,
+) -> Iterator[Tuple[List[np.ndarray], torch.Tensor, List[list]]]:
+    """``(frames, grays, faces)`` per batch of up to :data:`DETECT_BATCH`
+    uint8 BGR frames of ``frames`` (a ``None`` frame ends them): the frames
+    as given, their OpenCV-exact gray converted on the detector's device
+    (``(B, H, W)`` uint8 there), and the detector's boxes per frame with
+    the config's parameters."""
+    cfg = config.detect
+    pending: List[np.ndarray] = []
+
+    def flush():
+        grays = bgr_to_gray_exact(torch.from_numpy(np.stack(pending)).to(detector.device))
+        faces = detector.detect_multi_scale_batch(
+            grays, cfg.scale_factor, cfg.min_neighbors, cfg.min_size
+        )
+        batch = (list(pending), grays, faces)
+        pending.clear()
+        return batch
+
+    for n, frame in enumerate(frames):
+        if frame is None or (max_frames is not None and n >= max_frames):
+            break
+        pending.append(frame)
+        if len(pending) == DETECT_BATCH:
+            yield flush()
+    if pending:
+        yield flush()
+
+
 def haar_faces_per_frame(
     frames: Iterable[np.ndarray],
     detector: HaarDetector,
@@ -62,25 +95,8 @@ def haar_faces_per_frame(
     ends them): the frame as given and the detector's boxes, with the
     config's parameters, on its OpenCV-exact gray, converted on the
     detector's device, :data:`DETECT_BATCH` frames at a time."""
-    cfg = config.detect
-    pending: List[np.ndarray] = []
-
-    def flush():
-        device_frames = torch.from_numpy(np.stack(pending)).to(detector.device)
-        faces = detector.detect_multi_scale_batch(
-            bgr_to_gray_exact(device_frames), cfg.scale_factor, cfg.min_neighbors, cfg.min_size
-        )
-        yield from zip(pending, faces)
-        pending.clear()
-
-    for n, frame in enumerate(frames):
-        if frame is None or (max_frames is not None and n >= max_frames):
-            break
-        pending.append(frame)
-        if len(pending) == DETECT_BATCH:
-            yield from flush()
-    if pending:
-        yield from flush()
+    for batch, _, faces in haar_batches(frames, detector, config, max_frames):
+        yield from zip(batch, faces)
 
 
 def detect_frames(

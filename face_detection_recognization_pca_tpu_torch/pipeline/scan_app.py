@@ -33,7 +33,12 @@ bit for bit) and the crops are taken on the device.
   (:func:`scan_haar_multimodel`, and :func:`scan_frames_haar_multimodel`
   over frames in memory).
 
-The enhanced-model scan of the JAX package is not ported yet.
+* **enhanced mode** (``useless/scan-enhanced.py``): Haar detection, the
+  profile cascade's angle class per crop, and the five-branch ensemble
+  (:func:`scan_enhanced_video`, and :func:`scan_frames_enhanced` over
+  frames in memory).
+
+The guided video scan has a file-free form too, :func:`scan_frames_guided`.
 """
 
 from __future__ import annotations
@@ -63,7 +68,10 @@ from face_detection_recognization_pca_tpu_torch.io.detection_json import (
 from face_detection_recognization_pca_tpu_torch.io.video import VideoReader, VideoWriter
 from face_detection_recognization_pca_tpu_torch.models import eigenfaces as ef
 from face_detection_recognization_pca_tpu_torch.ops.color import bgr_to_gray_exact
-from face_detection_recognization_pca_tpu_torch.pipeline.detect_app import haar_faces_per_frame
+from face_detection_recognization_pca_tpu_torch.pipeline.detect_app import (
+    haar_batches,
+    haar_faces_per_frame,
+)
 from face_detection_recognization_pca_tpu_torch.recognize.engine import (
     ModelStack,
     MultiModelRecognizer,
@@ -75,6 +83,7 @@ from face_detection_recognization_pca_tpu_torch.recognize.fusion import (
 )
 from face_detection_recognization_pca_tpu_torch.utils import annotate
 from face_detection_recognization_pca_tpu_torch.utils.logging import Counters, get_logger
+from face_detection_recognization_pca_tpu_torch.utils.profiling import StageTimer
 
 log = get_logger("fdrp.scan")
 
@@ -110,41 +119,42 @@ def _recognize_crop(model, crop: np.ndarray, threshold: float):
     return int(ids[0]), float(confs[0])
 
 
-def scan_video_guided(
-    video_path: str,
-    person_name: str,
-    lock_dir: Optional[str] = None,
-    output_path: Optional[str] = None,
+def scan_frames_guided(
+    frames: Iterable[np.ndarray],
+    model: ef.EigenfacesModel,
+    names_by_id: Dict[int, str],
+    det_json,
+    template: np.ndarray,
     config: Optional[PipelineConfig] = None,
+    fps: float = 30.0,
+    writer=None,
     max_frames: Optional[int] = None,
-    device: Optional[torch.device] = None,
+    counters: Optional[Counters] = None,
 ) -> List[dict]:
-    """Guided video recognition (scan-template-v2 video mode), computing
-    on ``device`` (``None``: the CUDA device)."""
-    import cv2
-
+    """The guided video scan (scan-template-v2 video mode) over an
+    iterator of ``(H, W, 3)`` uint8 BGR frames (a ``None`` frame ends it),
+    on the model's device: the detection JSON ``det_json`` gives the
+    position priors, ``template`` (uint8 gray) is matched around them, and
+    the best hit's crop is recognized by ``model``.  A frame with priors is
+    converted to gray on the device (OpenCV's fixed-point conversion), so
+    no OpenCV is needed unless a ``writer`` is given, which gets every
+    frame with the overlay drawn."""
     cfg = config or PipelineConfig()
-    device = resolve_device(device)
-    lock = lock_dir or cfg.paths.lock_dir
-    art, model, det_json, template = _load_guided_assets(person_name, lock, device)
+    device = model.components.device
     matcher = GuidedMatcher(template, cfg.detect.search_scale_video, device=device)
-
-    reader = VideoReader(video_path)
-    meta = reader.meta
-    output_path = output_path or "recognition_output.mp4"
-    writer = VideoWriter(output_path, (meta.width, meta.height), meta.fps)
+    counters = counters if counters is not None else Counters()
     results: List[dict] = []
-    counters = Counters()
     frame_no = 0
-    names_by_id = art.names_by_id
-
-    for frame in reader.frames():
-        if max_frames is not None and frame_no >= max_frames:
+    for frame in frames:
+        if frame is None or (max_frames is not None and frame_no >= max_frames):
             break
         counters.inc("frames")
-        gray = cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY)
         priors = reference_positions(det_json, frame_no, cfg.detect.frame_tolerance)
-        hit = matcher.match_frame(gray, priors, frame_no) if priors else None
+        hit = None
+        if priors:
+            frame_t = torch.from_numpy(np.ascontiguousarray(frame)).to(device)
+            gray = bgr_to_gray_exact(frame_t).cpu().numpy()
+            hit = matcher.match_frame(gray, priors, frame_no)
         if hit is not None:
             counters.inc("frames_with_detection")
             x, y, w, h = hit["x"], hit["y"], hit["width"], hit["height"]
@@ -157,7 +167,7 @@ def scan_video_guided(
             results.append(
                 {
                     "frame_number": int(frame_no),
-                    "timestamp": float(frame_no / meta.fps if meta.fps else 0),
+                    "timestamp": float(frame_no / fps if fps else 0),
                     "x": int(x),
                     "y": int(y),
                     "width": int(w),
@@ -169,14 +179,21 @@ def scan_video_guided(
                     "ref_frame_diff": int(hit.get("ref_frame_diff", 0)),
                 }
             )
-            annotate.draw_guided(frame, (x, y, w, h), name, conf)
-        writer.write(frame)
+            if writer:
+                annotate.draw_guided(frame, (x, y, w, h), name, conf)
+        if writer:
+            writer.write(frame)
         frame_no += 1
         if frame_no % 100 == 0:
-            log.info("progress %d/%d frames", frame_no, meta.frame_count)
+            log.info("progress %d frames", frame_no)
+    return results
 
-    reader.close()
-    writer.close()
+
+def write_guided_results(results: List[dict], output_path: str, video_path: str,
+                         total_frames: int, fps: float) -> str:
+    """``recognition_results.json`` beside ``recognition_output.mp4`` (else
+    ``<output stem>_results.json``), schema of scan-template-v2.py:536-598;
+    returns its path."""
     results_path = (
         output_path.replace("recognition_output.mp4", "recognition_results.json")
         if output_path.endswith("recognition_output.mp4")
@@ -186,8 +203,8 @@ def scan_video_guided(
         json.dump(
             {
                 "video_path": video_path,
-                "total_frames": meta.frame_count,
-                "fps": meta.fps,
+                "total_frames": total_frames,
+                "fps": fps,
                 "total_recognitions": len(results),
                 "processing_date": datetime.now().isoformat(),
                 "results": results,
@@ -196,6 +213,41 @@ def scan_video_guided(
             indent=2,
             ensure_ascii=False,
         )
+    return results_path
+
+
+def scan_video_guided(
+    video_path: str,
+    person_name: str,
+    lock_dir: Optional[str] = None,
+    output_path: Optional[str] = None,
+    config: Optional[PipelineConfig] = None,
+    max_frames: Optional[int] = None,
+    device: Optional[torch.device] = None,
+) -> List[dict]:
+    """Guided video recognition (scan-template-v2 video mode), computing
+    on ``device`` (``None``: the CUDA device): :func:`scan_frames_guided`
+    fed by the decoder, with the person's model, detection JSON and first
+    crop from the lock directory; writes the annotated video and its
+    results JSON."""
+    cfg = config or PipelineConfig()
+    device = resolve_device(device)
+    lock = lock_dir or cfg.paths.lock_dir
+    art, model, det_json, template = _load_guided_assets(person_name, lock, device)
+    reader = VideoReader(video_path)
+    meta = reader.meta
+    output_path = output_path or "recognition_output.mp4"
+    writer = VideoWriter(output_path, (meta.width, meta.height), meta.fps)
+    counters = Counters()
+    try:
+        results = scan_frames_guided(
+            reader.frames(), model, art.names_by_id, det_json, template, cfg, meta.fps,
+            writer, max_frames, counters,
+        )
+    finally:
+        reader.close()
+        writer.close()
+    write_guided_results(results, output_path, video_path, meta.frame_count, meta.fps)
     log.info("\n%s", counters.recognition_summary())
     return results
 
@@ -645,6 +697,105 @@ def scan_haar_multimodel(
         return scan_frames_haar_multimodel(
             reader.frames(), stack, cfg, writer=writer, max_frames=max_frames
         )
+    finally:
+        reader.close()
+        if writer:
+            writer.close()
+
+
+def scan_frames_enhanced(
+    frames: Iterable[np.ndarray],
+    model,
+    config: Optional[PipelineConfig] = None,
+    writer=None,
+    max_frames: Optional[int] = None,
+    detector: Optional[HaarDetector] = None,
+    timer: Optional[StageTimer] = None,
+) -> List[dict]:
+    """The enhanced-model scan over an iterator of ``(H, W, 3)`` uint8 BGR
+    frames (a ``None`` frame ends it), on the model's device: Haar
+    detection :data:`~.detect_app.DETECT_BATCH` frames at a time, each
+    face's gray crop (OpenCV's exact gray, on the device) classified by
+    the profile cascade (:func:`..models.enhanced.detect_face_angle`), then
+    a frame's faces recognized together by the ensemble with angle-aware
+    reweighting (:func:`..models.enhanced.recognize_enhanced_batch`).
+    With a ``writer`` the overlay is drawn (with OpenCV) and every frame
+    written.  ``timer`` gets the seconds of the stages ``detect``,
+    ``angle`` and ``recognize`` (each ends on a result read by the host)."""
+    from face_detection_recognization_pca_tpu_torch.models.enhanced import (
+        detect_face_angle,
+        recognize_enhanced_batch,
+    )
+
+    cfg = config or PipelineConfig()
+    timer = timer or StageTimer()
+    detector = detector or HaarDetector(device=model.device)
+    results: List[dict] = []
+    frame_no = 0
+    batches = haar_batches(frames, detector, cfg, max_frames)
+    while True:
+        with timer.stage("detect"):
+            item = next(batches, None)
+        if item is None:
+            break
+        for frame, gray, faces in zip(*item):
+            boxes, crops = [], []
+            for (x, y, w, h) in faces:
+                crop = gray[y : y + h, x : x + w]
+                if crop.numel():
+                    boxes.append((x, y, w, h))
+                    crops.append(crop)
+            with timer.stage("angle"):
+                angles = [detect_face_angle(crop, model.device) for crop in crops]
+            with timer.stage("recognize"):
+                outs = recognize_enhanced_batch(model, crops, [a != "frontal" for a in angles])
+            for (x, y, w, h), angle, (pid, name, conf) in zip(boxes, angles, outs):
+                if writer:
+                    annotate.draw_guided(frame, (x, y, w, h), name, conf)
+                results.append(
+                    {
+                        "frame_number": frame_no,
+                        "person_id": int(pid),
+                        "person_name": name,
+                        "confidence": float(conf),
+                        "angle": angle,
+                        "x": int(x),
+                        "y": int(y),
+                        "width": int(w),
+                        "height": int(h),
+                    }
+                )
+            if writer:
+                writer.write(frame)
+            frame_no += 1
+    return results
+
+
+def scan_enhanced_video(
+    source,
+    person_name: str,
+    lock_dir: Optional[str] = None,
+    output_path: Optional[str] = None,
+    config: Optional[PipelineConfig] = None,
+    max_frames: Optional[int] = None,
+    device: Optional[torch.device] = None,
+) -> List[dict]:
+    """Enhanced-model scanning (``useless/scan-enhanced.py``):
+    :func:`scan_frames_enhanced` fed by the decoder, with the person's
+    ``enhanced_model.pkl`` from the lock directory, on ``device``
+    (``None``: the CUDA device)."""
+    from face_detection_recognization_pca_tpu_torch.models.enhanced import load_enhanced
+
+    cfg = config or PipelineConfig()
+    lock = lock_dir or cfg.paths.lock_dir
+    model = load_enhanced(
+        os.path.join(lock, person_name, "enhanced_model.pkl"), resolve_device(device)
+    )
+    reader = VideoReader(source)
+    meta = reader.meta
+    writer = VideoWriter(output_path, (meta.width, meta.height), meta.fps) if output_path else None
+    try:
+        return scan_frames_enhanced(reader.frames(), model, cfg, writer, max_frames)
     finally:
         reader.close()
         if writer:

@@ -17,7 +17,7 @@ def test_circular_correlator_matches_jax(n, out):
     kernel = rng.normal(0, 30, (tpl, tpl)).astype(np.float32)
     w = rng.normal(0, 25, (3, n, n)).astype(np.float32)
     ref = np.asarray(jdft.make_circular_correlator(kernel, n, out)(w))
-    got = tdft.make_circular_correlator(kernel, n, out)(torch.from_numpy(w))
+    got = tdft.make_circular_correlator(kernel, n, out, device="cpu")(torch.from_numpy(w))
     assert got.shape == (3, out, out) and got.dtype == torch.float32
     # float32 matmul chains summed in other orders; scale the bound by the peak.
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
@@ -30,4 +30,4 @@ def test_dft_matrices_are_the_jax_packages():
 
 def test_circular_correlator_rejects_aliasing():
     with pytest.raises(ValueError, match="alias-free"):
-        tdft.make_circular_correlator(np.ones((40, 40), np.float32), 64, 30)
+        tdft.make_circular_correlator(np.ones((40, 40), np.float32), 64, 30, device="cpu")

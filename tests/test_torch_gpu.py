@@ -557,3 +557,101 @@ def test_haar_detector_on_card_equals_the_cpu(cuda_device, precision):
     assert [len(b) for b in got[5]] == [1, 2, 0, 1]
     assert staged == got[5] and pipelined[0] + pipelined[1] == got[5]
     assert handles[0]["rows"].is_pinned() and handles[0]["ready"].query()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(544, 960), (137, 211), (1080, 1920)])
+def test_fx_resize_on_card_equals_the_cpu(cuda_device, size):
+    from face_detection_recognization_pca_tpu_torch.ops.resize import (
+        resize_bilinear_u8_exact_scale,
+    )
+
+    g = torch.Generator().manual_seed(size[0])
+    img = torch.randint(0, 256, size, generator=g, dtype=torch.uint8)
+    for scale in (0.5, 0.7, 1.3, 1.6):
+        want = resize_bilinear_u8_exact_scale(img, scale, scale)
+        got = resize_bilinear_u8_exact_scale(img.to(cuda_device), scale, scale)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_feature_functions_on_card_equal_the_cpu(cuda_device):
+    from face_detection_recognization_pca_tpu_torch.ops import features as tfeat
+
+    g = torch.Generator().manual_seed(3)
+    imgs = torch.randint(0, 256, (4, 64, 64), generator=g, dtype=torch.uint8)
+    imgs[1, 10:30, 10:40] = 255
+    imgs[2, 40:, :20] = 0
+    for name in ("equalize_hist_u8", "sharpen_u8", "gaussian_blur3_u8", "augment_face",
+                 "lbp_uniform_hist"):
+        fn = getattr(tfeat, name)
+        assert torch.equal(fn(imgs.to(cuda_device)).cpu(), fn(imgs)), name
+    for deg in (-5.0, 5.0):
+        assert torch.equal(tfeat.rotate_u8(imgs.to(cuda_device), deg).cpu(),
+                           tfeat.rotate_u8(imgs, deg))
+    assert torch.equal(tfeat.convert_scale_abs(imgs.to(cuda_device), 1.2, 10.0).cpu(),
+                       tfeat.convert_scale_abs(imgs, 1.2, 10.0))
+    hog = tfeat.hog_features(imgs.to(cuda_device)).cpu()
+    assert float((hog - tfeat.hog_features(imgs)).abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_ccoeff_detector_on_card_equals_the_cpu(cuda_device):
+    """A small frame where every (scale, group)'s top-k has a gap at rank k,
+    so both devices keep the same candidates and survivors."""
+    import numpy as np
+
+    from face_detection_recognization_pca_tpu_torch import bench
+    from face_detection_recognization_pca_tpu_torch.detect.ccoeff import CcoeffTemplateDetector
+
+    rng = np.random.default_rng(4)
+    fa, fb = bench._person_face(0, 40), bench._person_face(1, 30)
+    templates = [np.clip(f.astype(np.float32) + rng.normal(0, 6, f.shape), 0, 255).astype(np.uint8)
+                 for f in (fa, fa, fa, fb, fb)]
+    frame = np.clip(rng.normal(90, 8, (217, 301)), 0, 255).astype(np.uint8)
+    ya, xa = rng.integers(0, 217 - 40), rng.integers(0, 301 - 40)
+    frame[ya:ya + 40, xa:xa + 40] = fa
+    yb, xb = rng.integers(0, 217 - 30), rng.integers(0, 301 - 30)
+    frame[yb:yb + 30, xb:xb + 30] = fb
+    card = CcoeffTemplateDetector(templates, max_candidates=6, device=cuda_device)
+    cpu = CcoeffTemplateDetector(templates, max_candidates=6, device="cpu")
+    got = card.detect(frame)
+    assert got == cpu.detect(frame)
+    assert any(abs(b[0] - xa) <= 3 and abs(b[1] - ya) <= 3 and b[2] == 40 for b in got)
+
+
+@pytest.mark.gpu
+def test_recognize_enhanced_on_card_equals_the_cpu(cuda_device):
+    import numpy as np
+
+    from face_detection_recognization_pca_tpu_torch import bench
+    from face_detection_recognization_pca_tpu_torch.models import enhanced as tenh
+
+    crops = [bench.haar_face(s, 1 + i % 2)[10:10 + s, 10:10 + s]
+             for i, s in enumerate((80, 96, 80, 96, 88, 88))]
+    model = tenh.train_enhanced(crops, [i % 2 for i in range(6)], {"a": 0, "b": 1},
+                                device=cuda_device)
+    on_cpu = model.to("cpu")
+    probes = crops[:2] + [np.asarray(bench.haar_face(90, 2)[5:95, 5:95])]
+    for profile in (False, True):
+        got = tenh.recognize_enhanced_batch(model, probes, [profile] * 3)
+        want = tenh.recognize_enhanced_batch(on_cpu, probes, [profile] * 3)
+        assert [p for p, _, _ in got] == [p for p, _, _ in want]
+        assert max(abs(a[2] - b[2]) for a, b in zip(got, want)) <= CONF_ATOL
+    angle = tenh.detect_face_angle(torch.from_numpy(crops[0]).to(cuda_device))
+    assert angle == tenh.detect_face_angle(crops[0], "cpu")
+
+
+@pytest.mark.gpu
+def test_cli_computes_on_the_card_by_default(cuda_device, tmp_path, monkeypatch, capsys):
+    """No ``--device``: the entry points get None, which is the card."""
+    from face_detection_recognization_pca_tpu_torch.pipeline import cli as tcli
+
+    seen = []
+    monkeypatch.setattr(tcli, "_detect", lambda args, cfg, device: seen.append(device) or 0)
+    assert tcli.main(["detect", "--video", "v.mp4", "--person", "p"]) == 0
+    from face_detection_recognization_pca_tpu_torch.device import resolve_device
+
+    assert resolve_device(seen[0]).type == "cuda"
+    assert tcli.main(["bench", "--streams", "1", "--frames", "2", "--size", "544p"]) == 0
+    assert '"self_check": "ok"' in capsys.readouterr().out
