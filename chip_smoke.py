@@ -156,10 +156,38 @@ Phases, each printing a line:
     the model copied to the CPU: the same id, confidence within 1e-5.  Then
     ``cli.main(["bench", "--streams", "4", "--size", "1080p"])`` with no
     ``--device`` must print a JSON line whose self-check holds, and launch
-    ``fused_match`` (``launches_by_path["cli_bench"]``).
+    ``fused_match`` (``launches_by_path["cli_bench"]``);
+16. multi-process meshes on ``torch.distributed``: the script starts
+    itself again as workers (``--distributed-worker``), which join a group
+    through ``parallel.distributed.initialize_multihost`` and build
+    ``global_mesh``.  First one NCCL rank on the card (world size 1):
+    ``global_mesh(data=1, model=8)`` over 8 entries of it, then phase 6's
+    ``multichip_train_step`` (2048 images of 64², k 128),
+    ``sharded_gallery_match`` against the 1,048,573-row gallery in float32
+    and bfloat16 (every probe named by its planted label) and
+    ``dp_recognize`` of the 1024 crops.  Then two gloo ranks, both
+    computing on the one card (NCCL refuses two ranks on one GPU):
+    ``global_mesh(data=2, model=4)`` from 4 entries per rank, the train
+    step and ``dp_recognize`` of the 1024 crops, and
+    ``bench.dryrun_multichip(8, n_hosts=2)``, which must print its two
+    lines.  This process's one-process meshes of the same shapes give the
+    references, each held first: the train step against the dense
+    ``snapshot_pca`` as in phase 6, the gallery kernel on every shard of
+    the step's gallery (256 probes, k 128, 256 rows a shard on (1, 8) and
+    512 on (2, 4)) against its plain version, the shards' bests combined
+    equal to the step's confidences, and ``dp_recognize`` against
+    ``recognize``.  Every rank's results must equal the reference of its
+    mesh's shape bit for bit, and its gallery kernel launches are counted
+    around its main path (``launches_by_path["distributed"]``, summed over
+    the ranks).  A rank
+    that exits nonzero, outlives 300 s or prints no result fails the run.
+    It prints the seconds to join, the ms per call of each step, the ms per
+    ``all_gather_in_rank_order`` of the 1024 results and the launches per
+    rank.
 
 The line before the last is a JSON object describing each kernel, with
-its time, its plain version's, ``library_ms``, its HMMA counts and
+its time, its plain version's, ``library_ms``, its HMMA counts, its
+launches by phase (``launches_by_path``; ``launches`` is their sum) and
 ``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and
 its operations over the published dense peak of their type (fp32 67,
 TF32 495, bf16 989 TFLOP/s; float32 products count as three TF32
@@ -181,6 +209,7 @@ import io
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -189,6 +218,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from face_detection_recognization_pca_tpu_torch import bench, device as port_device
 from face_detection_recognization_pca_tpu_torch.config import RecognizeConfig
@@ -205,7 +235,11 @@ from face_detection_recognization_pca_tpu_torch.io.detection_json import (
 from face_detection_recognization_pca_tpu_torch.io.video import VideoMeta
 from face_detection_recognization_pca_tpu_torch.linalg.pca import snapshot_pca
 from face_detection_recognization_pca_tpu_torch.models.eigenfaces import (
+    PARAM_NAMES,
+    EigenfacesModel,
+    extract_features,
     from_artifact,
+    from_params,
     recognize,
     to_artifact,
     train_v1,
@@ -225,12 +259,16 @@ from face_detection_recognization_pca_tpu_torch.ops.gallery_match import (
     gallery_match,
 )
 from face_detection_recognization_pca_tpu_torch.parallel import (
+    all_gather_in_rank_order,
     dp_recognize,
+    global_mesh,
+    initialize_multihost,
     make_mesh,
     multichip_train_step,
     sharded_gallery_match,
     snapshot_pca_sharded,
 )
+from face_detection_recognization_pca_tpu_torch.parallel.distributed import GROUP_VARS
 from face_detection_recognization_pca_tpu_torch.parallel.multistream import (
     MultiStreamRecognizer,
 )
@@ -280,6 +318,11 @@ TRAIN_N, TRAIN_SIDE, TRAIN_K, TRAIN_SEED = 2048, 64, 128, 6
 # reconstruction proj @ components (well conditioned: component 128 stands
 # 13x above the noise, bench.structured_faces) within 1e-3 of its largest.
 EIG_RTOL, RECON_RTOL = 1e-4, 1e-3
+# Phase 16: each worker pair must end within DIST_TIMEOUT seconds; the
+# all_gather of the 1024 results is timed over DIST_GATHER_CALLS calls.
+DIST_TIMEOUT, DIST_GATHER_CALLS = 300, 50
+DIST_MESHES = {"nccl": (1, 8), "gloo": (2, 4)}  # (data, model) over the ranks' entries
+DIST_WORLD = {"nccl": 1, "gloo": 2}
 # One H100 SXM, published dense peaks at 700 W (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
@@ -325,15 +368,19 @@ def gallery_bound(b: int, k: int, n: int, dt: torch.dtype) -> dict:
     return bound(nbytes, 2.0 * b * k * n, "bf16")
 
 
+def card_and_limit() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
 def phase_environment() -> torch.device:
     dev = port_device.require_cuda()
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    print(smi)
+    print(card_and_limit())
     torch.set_float32_matmul_precision("highest")
     flags = port_device.disable_tf32()
     print(f"[env] tf32 {flags}")
@@ -693,32 +740,42 @@ def _gallery_cases(dev, gen):
     return cases
 
 
+def hold_gallery_kernel(tag, name, feats, gallery_t, gnorm, dt, random) -> tuple:
+    """``gallery_match`` against ``_gallery_match_plain`` on one case: ids
+    equal (where ``random``, a differing id must be a near-tie, plain
+    cosines within ``NEAR_TIE``), best within the dtype's tolerance.
+    Prints a line under ``tag``; returns the kernel's ``(idx, best)`` and
+    the largest best error."""
+    idx_k, best_k = gallery_match(feats, gallery_t, gnorm, operand_dtype=dt)
+    idx_p, best_p = _gallery_match_plain(feats, gallery_t, gnorm, operand_dtype=dt)
+    torch.cuda.synchronize()
+    differ = (idx_k != idx_p).nonzero()[:, 0]
+    gap = 0.0
+    if len(differ):
+        check(random, f"{name}: ids differ at {differ.tolist()[:8]}")
+        cos_k = _plain_cos(feats[differ], gallery_t, gnorm, idx_k[differ], dt)
+        cos_p = _plain_cos(feats[differ], gallery_t, gnorm, idx_p[differ], dt)
+        gap = float((cos_k - cos_p).abs().max())
+        check(gap <= NEAR_TIE, f"{name}: differing ids are no near-ties (gap {gap})")
+    err = float((best_k - best_p).abs().max())
+    atol = CONF_ATOL if dt == torch.float32 else CONF_ATOL_BF16
+    print(f"[{tag}] {name}: B={feats.shape[0]} k={feats.shape[1]} "
+          f"N={gallery_t.shape[1]} {str(dt)[6:]}: {len(differ)} near-tie ids "
+          f"(max cos gap {gap:.3g}), max|dbest| {err:.3g}")
+    check(err <= atol, f"{name}: best error {err} > {atol}")
+    return idx_k, best_k, err
+
+
 def phase_gallery_vs_plain(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     cases = _gallery_cases(dev, gen)
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     results = {}
-    for name, (feats, gallery_t, gnorm, dt, random) in cases.items():
-        idx_k, best_k = gallery_match(feats, gallery_t, gnorm, operand_dtype=dt)
-        idx_p, best_p = _gallery_match_plain(feats, gallery_t, gnorm, operand_dtype=dt)
-        torch.cuda.synchronize()
+    for name, case in cases.items():
+        idx_k, best_k, err = hold_gallery_kernel("gallery", name, *case)
         results[name] = (idx_k, best_k)
-        differ = (idx_k != idx_p).nonzero()[:, 0]
-        gap = 0.0
-        if len(differ):
-            check(random, f"{name}: ids differ at {differ.tolist()[:8]}")
-            cos_k = _plain_cos(feats[differ], gallery_t, gnorm, idx_k[differ], dt)
-            cos_p = _plain_cos(feats[differ], gallery_t, gnorm, idx_p[differ], dt)
-            gap = float((cos_k - cos_p).abs().max())
-            check(gap <= NEAR_TIE, f"{name}: differing ids are no near-ties (gap {gap})")
-        err = float((best_k - best_p).abs().max())
-        errs[dt] = max(errs[dt], err)
-        atol = CONF_ATOL if dt == torch.float32 else CONF_ATOL_BF16
-        print(f"[gallery] {name}: B={feats.shape[0]} k={feats.shape[1]} "
-              f"N={gallery_t.shape[1]} {str(dt)[6:]}: {len(differ)} near-tie ids "
-              f"(max cos gap {gap:.3g}), max|dbest| {err:.3g}")
-        check(err <= atol, f"{name}: best error {err} > {atol}")
+        errs[case[3]] = max(errs[case[3]], err)
 
     idx, best = results["sentinel"]
     check(int(idx[1]) == 300 and int(idx[0]) != 700 and bool((idx < 900).all()),
@@ -772,6 +829,37 @@ def _best_time(fn, reps=3) -> float:
     return best
 
 
+def _dp_model_and_crops(images: torch.Tensor) -> tuple:
+    """A v1 model of ``images`` (labels ``row % 16``) and noisy copies of
+    its first ``GALLERY_B`` images as crops, for ``dp_recognize``."""
+    model, _ = train_v1(images, n_components=TRAIN_K)
+    model.labels = torch.arange(TRAIN_N, dtype=torch.int32, device=images.device) % 16
+    noise = torch.Generator(device=images.device).manual_seed(TRAIN_SEED)
+    crops = images[:GALLERY_B] + 2 * torch.randn(GALLERY_B, TRAIN_SIDE ** 2, generator=noise,
+                                                 device=images.device)
+    return model, crops.reshape(-1, TRAIN_SIDE, TRAIN_SIDE)
+
+
+def check_train_step(tag, m, mesh, step, images, dense) -> None:
+    """``multichip_train_step``'s ``(ids, conf, eigval)`` on ``mesh``
+    against the dense ``snapshot_pca``: every probe self-matches above
+    0.999, the eigenvalues descend and lie within ``EIG_RTOL`` of the
+    dense ones, and the mesh's rank-k reconstruction within
+    ``RECON_RTOL``."""
+    ids, conf, eigval = step
+    recon_d = dense.projected @ dense.components
+    comps, _, proj, _ = snapshot_pca_sharded(mesh, images, TRAIN_K)
+    eig_err = float((eigval - dense.eigenvalues).abs().max() / dense.eigenvalues[0])
+    recon_err = float((proj @ comps - recon_d).abs().max()) / float(recon_d.abs().max())
+    print(f"[{tag}] multichip_train_step {m}: ids {sorted(set(ids.tolist()))}, min conf "
+          f"{float(conf.min()):.6f}, eigenvalue err {eig_err:.3g} of the largest, "
+          f"reconstruction err {recon_err:.3g} of its largest")
+    check(bool((ids == 0).all()) and float(conf.min()) > 0.999, f"{m}: probes self-match")
+    check(bool((eigval[1:] <= eigval[:-1]).all()), f"{m}: eigenvalues descending")
+    check(eig_err <= EIG_RTOL, f"{m}: eigenvalues vs dense {eig_err}")
+    check(recon_err <= RECON_RTOL, f"{m}: reconstruction vs dense {recon_err}")
+
+
 def phase_gallery_slice(dev, card: str) -> tuple:
     t0 = time.perf_counter()
     feats, gallery, labels, planted = bench.large_gallery_assets(
@@ -779,11 +867,7 @@ def phase_gallery_slice(dev, card: str) -> tuple:
     want = labels[torch.from_numpy(planted).to(dev)]
     galleries = {torch.float32: gallery, torch.bfloat16: gallery.to(torch.bfloat16)}
     images = bench.structured_faces(TRAIN_N, TRAIN_SIDE, TRAIN_K, TRAIN_SEED, dev)
-    model, _ = train_v1(images, n_components=TRAIN_K)
-    model.labels = torch.arange(TRAIN_N, dtype=torch.int32, device=dev) % 16
-    noise = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
-    crops = (images[:GALLERY_B] + 2 * torch.randn(GALLERY_B, TRAIN_SIDE ** 2, generator=noise,
-                                                  device=dev)).reshape(-1, TRAIN_SIDE, TRAIN_SIDE)
+    model, crops = _dp_model_and_crops(images)
     probes = images[:256].reshape(-1, TRAIN_SIDE, TRAIN_SIDE)
     meshes = {"(1,1)": make_mesh(1, 1), "(1,8)": make_mesh(1, 8, devices=[dev] * 8)}
     dp_mesh = make_mesh(8, 1, devices=[dev] * 8)
@@ -834,19 +918,8 @@ def phase_gallery_slice(dev, card: str) -> tuple:
           f"max|dconf| {err:.3g}")
 
     dense = snapshot_pca(images, TRAIN_K)
-    recon_d = dense.projected @ dense.components
-    scale = float(recon_d.abs().max())
-    for m, (ids, conf, eigval) in trained.items():
-        comps, _, proj, _ = snapshot_pca_sharded(meshes[m], images, TRAIN_K)
-        eig_err = float((eigval - dense.eigenvalues).abs().max() / dense.eigenvalues[0])
-        recon_err = float((proj @ comps - recon_d).abs().max()) / scale
-        print(f"[slice2] multichip_train_step {m}: ids {sorted(set(ids.tolist()))}, min conf "
-              f"{float(conf.min()):.6f}, eigenvalue err {eig_err:.3g} of the largest, "
-              f"reconstruction err {recon_err:.3g} of its largest")
-        check(bool((ids == 0).all()) and float(conf.min()) > 0.999, f"{m}: probes self-match")
-        check(bool((eigval[1:] <= eigval[:-1]).all()), f"{m}: eigenvalues descending")
-        check(eig_err <= EIG_RTOL, f"{m}: eigenvalues vs dense {eig_err}")
-        check(recon_err <= RECON_RTOL, f"{m}: reconstruction vs dense {recon_err}")
+    for m, step in trained.items():
+        check_train_step("slice2", m, meshes[m], step, images, dense)
     check(torch.equal(trained["(1,1)"][0], trained["(1,8)"][0]), "train step: meshes agree")
 
     # Kernel, plain and torch.matmul of the same operands at N = 1,048,573
@@ -1566,7 +1639,237 @@ def phase_flow(dev, card: str) -> int:
     return launches
 
 
+def _distributed_inputs(dev, with_gallery: bool) -> tuple:
+    """Phase 6's inputs, made again from its seeds: ``(images, probes,
+    feats, galleries, labels, want)``; the large gallery's part (features,
+    the gallery in float32 and bfloat16, labels and the planted labels) is
+    None without ``with_gallery``."""
+    images = bench.structured_faces(TRAIN_N, TRAIN_SIDE, TRAIN_K, TRAIN_SEED, dev)
+    probes = images[:256].reshape(-1, TRAIN_SIDE, TRAIN_SIDE)
+    if not with_gallery:
+        return images, probes, None, None, None, None
+    feats, gallery, labels, planted = bench.large_gallery_assets(
+        GALLERY_B, GALLERY_K, GALLERY_N, GALLERY_SEED, dev)
+    galleries = {torch.float32: gallery, torch.bfloat16: gallery.to(torch.bfloat16)}
+    return images, probes, feats, galleries, labels, labels[torch.from_numpy(planted).to(dev)]
+
+
+def _distributed_calls(mode: str, mesh, inputs: tuple, model, crops) -> dict:
+    """Phase 16's main path on ``mesh`` as named calls: the train step; on
+    the NCCL path the identification call in float32 and bfloat16; and
+    ``dp_recognize`` of the 1024 crops."""
+    images, probes, feats, galleries, labels, _ = inputs
+    calls = {"train": lambda: multichip_train_step(mesh, images, probes, TRAIN_K,
+                                                   (TRAIN_SIDE, TRAIN_SIDE))}
+    if mode == "nccl":
+        for dt, g in galleries.items():
+            calls[f"match {str(dt)[6:]}"] = (
+                lambda g=g: sharded_gallery_match(mesh, feats, g, labels))
+    calls["dp"] = lambda: dp_recognize(mesh, model, crops)
+    return calls
+
+
+def distributed_worker(mode: str, tmp: str) -> int:
+    """One rank of phase 16, started by the phase as ``chip_smoke.py
+    --distributed-worker MODE DIR`` with the ``FDRP_*`` variables set: it
+    joins the group (NCCL on its card, or gloo when ``MODE`` is ``gloo``),
+    runs the main path on ``global_mesh`` with the model and crops the
+    parent wrote into ``DIR``, writes the results there and prints one
+    ``RESULT:`` line; the gloo ranks then run ``bench.dryrun_multichip(8,
+    n_hosts=2)``."""
+    t0 = time.perf_counter()
+    joined = initialize_multihost() if mode == "nccl" else initialize_multihost(backend="gloo")
+    join_s = time.perf_counter() - t0
+    check(joined and dist.get_backend() == mode, f"joined a {mode} group")
+    try:
+        rank, world = dist.get_rank(), dist.get_world_size()
+        check(world == DIST_WORLD[mode], f"{mode}: world size {world}")
+        torch.set_float32_matmul_precision("highest")
+        port_device.disable_tf32()
+        dev = torch.device("cuda", torch.cuda.current_device())
+        saved = torch.load(os.path.join(tmp, "inputs.pt"))
+        model = from_params({k: None if v is None else v.numpy() for k, v in saved["params"].items()},
+                            (TRAIN_SIDE, TRAIN_SIDE), "v1", dev)
+        crops = saved["crops"].to(dev)
+        inputs = _distributed_inputs(dev, with_gallery=mode == "nccl")
+        mesh = global_mesh(*DIST_MESHES[mode], devices=[dev] * (8 // world))
+        rows = [sorted(set(row)) for row in mesh.ranks.tolist()]
+        check(mesh.devices.shape == DIST_MESHES[mode] and rows == [[r] for r in range(world)]
+              and mesh.spans_processes == (world > 1), f"{mode}: mesh {mesh}, rows owned {rows}")
+        calls = _distributed_calls(mode, mesh, inputs, model, crops)
+
+        fused_match.launches = gallery_match.launches = 0
+        out = {name: fn() for name, fn in calls.items()}
+        torch.cuda.synchronize()
+        launches = gallery_match.launches
+        want = (3 if mode == "nccl" else 1) * mesh.shape["model"]
+        check(launches == want, f"{mode} rank {rank}: gallery_match launched {launches}, want {want}")
+        check(fused_match.launches == 0, "the distributed path does not use the fused kernel")
+        if mode == "nccl":
+            for dt in inputs[3]:
+                check(torch.equal(out[f"match {str(dt)[6:]}"][0], inputs[5]),
+                      f"nccl {dt}: every probe named by its planted label")
+        torch.save({name: tuple(t.cpu() for t in res) for name, res in out.items()},
+                   os.path.join(tmp, f"{mode}_rank{rank}.pt"))
+
+        ms = {name: _best_time(fn) * 1e3 for name, fn in calls.items()}
+        conf = out["dp"][1]
+        dist.barrier()
+        t1 = time.perf_counter()
+        for _ in range(DIST_GATHER_CALLS):
+            parts = all_gather_in_rank_order(conf)
+        torch.cuda.synchronize()
+        gather_ms = (time.perf_counter() - t1) / DIST_GATHER_CALLS * 1e3
+        check(torch.equal(parts[rank], conf), "the gather hands back this rank's part")
+        where = ("NCCL at world size 1" if mode == "nccl"
+                 else "gloo through host copies, both ranks sharing one card")
+        print(f"[distributed] {mode} rank {rank}/{world}: joined in {join_s:.2f} s; mesh "
+              f"{DIST_MESHES[mode]} of {8 // world} entries of {dev} per rank, rows owned by ranks "
+              f"{rows}; gallery_match launches {launches}; ms per call (host clock, best of 3): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + f"; all_gather_in_rank_order of the {conf.numel()} float32 confidences "
+              f"{gather_ms:.4f} ms ({where})")
+        print("RESULT:" + json.dumps({"rank": rank, "launches": launches, "join_s": join_s,
+                                      "ms": ms, "gather_ms": gather_ms}), flush=True)
+        if mode == "gloo":
+            bench.dryrun_multichip(8, n_hosts=2)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(mode: str, tmp: str) -> dict:
+    """Start every rank of ``mode`` at once; rank -> (output, its RESULT
+    object).  A rank that exits nonzero, outlives ``DIST_TIMEOUT`` or prints
+    no result fails the phase, and every rank still running is killed."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    world = DIST_WORLD[mode]
+    procs, logs = [], []
+    for rank in range(world):
+        env = {k: v for k, v in os.environ.items() if k not in GROUP_VARS}
+        env.update(FDRP_COORDINATOR=f"127.0.0.1:{port}", FDRP_NUM_PROCESSES=str(world),
+                   FDRP_PROCESS_ID=str(rank))
+        logs.append(open(os.path.join(tmp, f"{mode}_rank{rank}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), "--distributed-worker", mode, tmp],
+            cwd=here, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DIST_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+    outs = {}
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        check(p.returncode == 0, f"{mode} rank {rank} exited {p.returncode}:\n{text[-6000:]}")
+        results = [ln[len("RESULT:"):] for ln in text.splitlines() if ln.startswith("RESULT:")]
+        check(len(results) == 1, f"{mode} rank {rank} printed no result:\n{text[-6000:]}")
+        for line in text.splitlines():
+            if line.startswith(("[distributed]", "multi-host:", "dryrun_multichip")):
+                print(line)
+        outs[rank] = (text, json.loads(results[0]))
+    return outs
+
+
+def hold_train_step_shards(m, mesh, images, probes, step) -> None:
+    """The gallery kernel at the shapes ``multichip_train_step`` gives it
+    on ``mesh``: the step's gallery (the sharded projection, every label
+    0) and its probes' features, made as the step makes them, one call per
+    shard held against the plain version.  The shards' bests, combined,
+    must be the step's confidences bit for bit."""
+    comps, mean, proj, _ = snapshot_pca_sharded(mesh, images, TRAIN_K)
+    labels = torch.zeros(proj.shape[0], dtype=torch.int32, device=proj.device)
+    model = EigenfacesModel(components=comps, projection_mean=mean, mean_face=mean, gallery=proj,
+                            labels=labels, face_shape=(TRAIN_SIDE, TRAIN_SIDE), schema="v1")
+    feats = extract_features(model, probes)
+    rows = -(-proj.shape[0] // mesh.shape["model"])
+    bests = []
+    for s in range(mesh.shape["model"]):
+        shard = proj[s * rows:(s + 1) * rows]
+        gnorm = torch.linalg.vector_norm(shard, dim=1, dtype=torch.float32)
+        bests.append(hold_gallery_kernel("distributed", f"train step {m} shard {s}", feats,
+                                         shard.T, gnorm, torch.float32, True)[1])
+    check(torch.equal(torch.stack(bests).max(dim=0).values, step[1]),
+          f"{m}: the shards' bests combine to the train step's confidences")
+
+
+def phase_distributed(dev, card: str) -> int:
+    """Phase 16; returns the gallery kernel's launches summed over the
+    ranks' main paths."""
+    t0 = time.perf_counter()
+    inputs = _distributed_inputs(dev, with_gallery=True)
+    images, probes = inputs[:2]
+    model, crops = _dp_model_and_crops(images)
+    refs = {}
+    for mode, shape in DIST_MESHES.items():
+        mesh = make_mesh(*shape, devices=[dev] * 8)
+        refs[mode] = {name: fn() for name, fn in
+                      _distributed_calls(mode, mesh, inputs, model, crops).items()}
+    for dt in inputs[3]:
+        check(torch.equal(refs["nccl"][f"match {str(dt)[6:]}"][0], inputs[5]),
+              f"one-process (1, 8) {dt}: every probe named by its planted label")
+    torch.cuda.synchronize()
+    print(f"[distributed] one-process references on (1, 8) and (2, 4) meshes of {dev}: "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # The references themselves, on both meshes: the train step against the
+    # dense PCA, the gallery kernel on each of the step's shards against its
+    # plain version, and dp_recognize against recognize.
+    dense = snapshot_pca(images, TRAIN_K)
+    ids_s, conf_s = recognize(model, crops)
+    for mode, shape in DIST_MESHES.items():
+        m = f"({shape[0]},{shape[1]})"
+        mesh = make_mesh(*shape, devices=[dev] * 8)
+        check_train_step("distributed", m, mesh, refs[mode]["train"], images, dense)
+        hold_train_step_shards(m, mesh, images, probes, refs[mode]["train"])
+        ids, conf = refs[mode]["dp"]
+        err = float((conf - conf_s).abs().max())
+        check(torch.equal(ids, ids_s), f"{m}: dp_recognize ids equal recognize's")
+        check(err <= CONF_ATOL, f"{m}: dp_recognize conf error {err}")
+        print(f"[distributed] dp_recognize {m} vs recognize, {GALLERY_B} crops: ids equal, "
+              f"max|dconf| {err:.3g}")
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"params": {n: None if getattr(model, n) is None else getattr(model, n).cpu()
+                               for n in PARAM_NAMES}, "crops": crops.cpu()},
+                   os.path.join(tmp, "inputs.pt"))
+        for mode, shape in DIST_MESHES.items():
+            t1 = time.perf_counter()
+            outs = _run_ranks(mode, tmp)
+            for rank, (text, result) in outs.items():
+                got = torch.load(os.path.join(tmp, f"{mode}_rank{rank}.pt"))
+                check(got.keys() == refs[mode].keys(), f"{mode} rank {rank}: {sorted(got)}")
+                for name, ref in refs[mode].items():
+                    check(all(torch.equal(a, b.cpu()) for a, b in zip(got[name], ref)),
+                          f"{mode} rank {rank} {name}: bit for bit the one-process {shape} mesh's")
+                if mode == "gloo":
+                    check(f"multi-host: process {rank}/2, 8 global devices" in text
+                          and "dryrun_multichip OK: mesh data=2 x model=4" in text,
+                          f"gloo rank {rank}: the dryrun's two lines")
+                launches += result["launches"]
+            print(f"[distributed] {mode}, world size {len(outs)}: "
+                  + ", ".join(f"{name} {tuple(ref[0].shape)}" for name, ref in refs[mode].items())
+                  + f" equal bit for bit on every rank to the one-process {shape} mesh; gallery_match "
+                  f"launches by rank {[outs[r][1]['launches'] for r in sorted(outs)]}; "
+                  f"{time.perf_counter() - t1:.2f} s with the ranks' start")
+    print(f"[distributed] phase {time.perf_counter() - t0:.2f} s; {card_and_limit()}")
+    return launches
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--distributed-worker"]:
+        return distributed_worker(*sys.argv[2:4])
     dev = phase_environment()
     card = torch.cuda.get_device_name(0)
     hmma = phase_build()
@@ -1590,11 +1893,15 @@ def main() -> int:
     phase_enhanced(dev, card)
     torch.cuda.empty_cache()
     by_path["cli_bench"] = phase_flow(dev, card)
+    torch.cuda.empty_cache()
+    gallery_by_path = {"large_gallery": gallery_launches,
+                       "distributed": phase_distributed(dev, card)}
     print(json.dumps({"kernels": [
         {**KERNELS["fused_match"], "launches": sum(by_path.values()),
          "launches_by_path": by_path, **fused, "d16384": d16384, "hmma": hmma["fused_match"]},
-        {**KERNELS["gallery_match"], "launches": gallery_launches, **gallery,
-         "n_1048573": n1m, "hmma": hmma["gallery_match"]},
+        {**KERNELS["gallery_match"], "launches": sum(gallery_by_path.values()),
+         "launches_by_path": gallery_by_path, **gallery, "n_1048573": n1m,
+         "hmma": hmma["gallery_match"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

@@ -45,6 +45,10 @@ enhanced ensemble: :func:`haar_bgr_frames` scenes of several persons at
 seeded sides, to train on their detected crops and to scan
 (:func:`enhanced_assets`).  The reference's flow, detect -> train ->
 recognize: :func:`pipeline_assets`.
+
+The multi-chip dryrun (``__graft_entry__.dryrun_multichip``): the sharded
+training step on a (data x model) mesh, across processes when a process
+group is configured (:func:`dryrun_multichip`).
 """
 
 from __future__ import annotations
@@ -71,11 +75,17 @@ from face_detection_recognization_pca_tpu_torch.ops.gallery_match import (
     gallery_match,
 )
 from face_detection_recognization_pca_tpu_torch.ops.preprocess import preprocess_crops
+from face_detection_recognization_pca_tpu_torch.parallel.distributed import (
+    global_mesh,
+    initialize_multihost,
+)
+from face_detection_recognization_pca_tpu_torch.parallel.mesh import make_mesh
 from face_detection_recognization_pca_tpu_torch.parallel.multistream import (
     StepOperands,
     locate_and_match,
     step_operands,
 )
+from face_detection_recognization_pca_tpu_torch.parallel.sharding import multichip_train_step
 
 SIZES = {"1080p": (1080, 1920), "720p": (720, 1280), "544p": (544, 960)}
 WIN = 192  # search window side (guided scanner: 1.5-2x face box)
@@ -484,6 +494,67 @@ def structured_faces(n: int, side: int, rank: int, seed: int, device: torch.devi
     coeffs = rng.standard_normal((n, rank)) * (60.0 * 0.985 ** np.arange(rank))
     images = 110.0 + coeffs @ basis.T + rng.standard_normal((n, d))
     return torch.from_numpy(images.astype(np.float32)).to(device)
+
+
+def dryrun_multichip(n_devices: int, n_hosts: int = 1,
+                     device: Optional[Union[str, torch.device]] = None) -> None:
+    """The sharded training step on an ``n_devices``-entry mesh (port of
+    ``__graft_entry__.dryrun_multichip``).  Every entry is ``device`` (the
+    CUDA device for ``None``), repeated as often as the mesh needs.
+
+    ``n_hosts > 1`` asks for the multi-process path: where
+    :func:`..parallel.distributed.initialize_multihost` finds a process
+    group (or one is joined already), the ``n_devices`` entries are split
+    evenly over its processes and :func:`..parallel.distributed.global_mesh`
+    lays the data axis across them; without one it says so and continues
+    in one process.  The model axis is the largest divisor of the entry
+    count, of the feature dim and of the local entry count that still
+    leaves a data axis, as in the JAX package.  Raises ``RuntimeError``
+    where the step's self-checks fail; prints the JAX package's lines."""
+    device = resolve_device(device)
+    multihost = False
+    if n_hosts > 1:
+        if initialize_multihost():
+            multihost = True
+            world = torch.distributed.get_world_size()
+            if n_devices % world:
+                raise ValueError(f"{n_devices} entries do not split over {world} processes")
+            print(f"multi-host: process {torch.distributed.get_rank()}/{world}, "
+                  f"{n_devices} global devices")
+        else:
+            print(f"multi-host requested (n_hosts={n_hosts}) but no coordinator configured; "
+                  "continuing single-host")
+    local = n_devices // torch.distributed.get_world_size() if multihost else n_devices
+    d = 64 * 64  # feature dim; the model axis must divide it
+    model_par = 1
+    for cand in range(min(max(n_devices // 2, 1), local), 0, -1):
+        if n_devices % cand == 0 and d % cand == 0 and local % cand == 0:
+            model_par = cand
+            break
+    data_par = n_devices // model_par
+    if multihost:
+        mesh = global_mesh(data=data_par, model=model_par, devices=[device] * local)
+    else:
+        mesh = make_mesh(data=data_par, model=model_par, devices=[device] * n_devices)
+
+    rng = np.random.default_rng(11)
+    n_imgs = 4 * max(data_par, 2)
+    images = rng.normal(110, 20, (n_imgs, d)).astype(np.float32)
+    probe_count = 2 * data_par
+    probes = images[:probe_count].reshape(probe_count, 64, 64)
+    with exact_float32():
+        ids, conf, eigval = multichip_train_step(
+            mesh, torch.from_numpy(images).to(device), torch.from_numpy(probes).to(device),
+            n_components=4, face_shape=(64, 64))
+    ids, conf, eig = ids.cpu().numpy(), conf.cpu().numpy(), eigval.cpu().numpy()
+    if ids.shape != (probe_count,):
+        raise RuntimeError(f"ids of shape {ids.shape}, want ({probe_count},)")
+    if not np.all(np.diff(eig) <= 1e-6):
+        raise RuntimeError(f"eigenvalues not descending: {eig}")
+    if not conf.min() > 0.99:
+        raise RuntimeError(f"self-match failed: {conf}")
+    print(f"dryrun_multichip OK: mesh data={data_par} x model={model_par}, "
+          f"ids={ids.tolist()}, min_conf={conf.min():.4f}")
 
 
 def headline_self_check(out, offs: np.ndarray, win_y: int, win_x: int) -> Tuple[float, float]:

@@ -1,11 +1,14 @@
 """Multi-stream serving, and meshes with sharded compute: data-parallel
 recognition, gallery sharding over the ``model`` axis and feature-sharded
-snapshot PCA (port of the JAX package's ``parallel``).
-
-Not ported yet: ``parallel/distributed.py`` (multi-process and
-multi-host meshes).
+snapshot PCA, in one process or across the processes of a
+``torch.distributed`` group (port of the JAX package's ``parallel``).
 """
 
+from face_detection_recognization_pca_tpu_torch.parallel.distributed import (  # noqa: F401
+    all_gather_in_rank_order,
+    global_mesh,
+    initialize_multihost,
+)
 from face_detection_recognization_pca_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     make_mesh,

@@ -161,10 +161,15 @@ def _track(windows, mean, origin, frame_hw, ops: StepOperands):
 class MultiStreamRecognizer:
     """Stateful vectorized tracker+recognizer over S video streams, on the
     device that holds ``model``'s buffers, or over ``mesh``'s ``data_axis``
-    devices (S must divide by their number)."""
+    devices (S must divide by their number).  A mesh that spans processes
+    raises ``ValueError``: its streams' results would lie in several
+    processes, and no one process could read the step's outputs."""
 
     def __init__(self, model, template: np.ndarray, window: int = 192,
                  mesh: Optional[Mesh] = None, data_axis: str = "data"):
+        if mesh is not None and mesh.spans_processes:
+            raise ValueError("MultiStreamRecognizer runs in one process; this mesh spans "
+                             f"ranks {sorted(set(mesh.ranks.flat))}")
         tpl = int(template.shape[0])
         if template.shape[0] != template.shape[1]:
             raise ValueError("square templates only")

@@ -1,18 +1,25 @@
-"""Sharded compute in one process: data-parallel recognition, gallery
-sharding and feature-sharded PCA (port of ``parallel/sharding.py``).
+"""Sharded compute: data-parallel recognition, gallery sharding and
+feature-sharded PCA (port of ``parallel/sharding.py``).
 
 The JAX package runs these under ``shard_map`` with ``psum`` and
 ``all_gather``.  Here the collectives are written out: each shard's
-result is moved to the mesh's first device, and the results are stacked
-or summed there in shard order, so a result does not depend on which
-devices hold the shards or on their timing.  Along the other mesh axis
-the JAX shards are replicas that compute the same values; this port
-computes them once, on the devices at index 0 of that axis.
+result is moved to the process's first device, and the results are
+stacked or summed there in shard order, so a result does not depend on
+which devices hold the shards or on their timing.  Along the other mesh
+axis the JAX shards are replicas that compute the same values; this port
+computes them once, on the row (or column) of the process's own entries.
+
+On a mesh that spans processes (:func:`..distributed.global_mesh`) the
+model axis lies inside each process, so gallery sharding and the sharded
+PCA run whole in every process on its own row and no tensor crosses
+processes.  Only :func:`dp_recognize` splits work across them: each
+process recognizes the chunks it owns, and the results are gathered in
+rank order (:func:`..distributed.all_gather_in_rank_order`).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -25,6 +32,9 @@ from face_detection_recognization_pca_tpu_torch.models.eigenfaces import (
 )
 from face_detection_recognization_pca_tpu_torch.ops.gallery_match import gallery_match
 from face_detection_recognization_pca_tpu_torch.ops.similarity import cosine_gallery
+from face_detection_recognization_pca_tpu_torch.parallel.distributed import (
+    all_gather_in_rank_order,
+)
 from face_detection_recognization_pca_tpu_torch.parallel.mesh import Mesh
 
 
@@ -66,6 +76,19 @@ def _shard_cosines(feats: torch.Tensor, shard: torch.Tensor) -> torch.Tensor:
     return torch.where(safe, dots / torch.where(safe, denom, torch.ones_like(denom)), 0.0)
 
 
+def _gather_chunks(local: Dict[int, torch.Tensor], owners: Sequence[int]) -> torch.Tensor:
+    """The chunks in chunk order, each from the process that owns it.
+    ``local`` maps this process's chunk positions to its results; the
+    other positions are zeros in the buffer it sends."""
+    sample = next(iter(local.values()))
+    size = sample.shape[0]
+    buf = sample.new_zeros((len(owners) * size, *sample.shape[1:]))
+    for i, part in local.items():
+        buf[i * size : (i + 1) * size] = part
+    parts = all_gather_in_rank_order(buf)
+    return torch.cat([parts[owner][i * size : (i + 1) * size] for i, owner in enumerate(owners)])
+
+
 def dp_recognize(
     mesh: Mesh,
     model: EigenfacesModel,
@@ -76,20 +99,31 @@ def dp_recognize(
     """Data-parallel recognize: the crop batch is split into contiguous
     chunks over the ``data`` axis, each chunk is recognized on its device
     by a copy of the model there, and the results are concatenated on
-    the mesh's first device.  Returns ``(person_ids, confidences)``."""
+    the process's first device.  On a mesh that spans processes each
+    process recognizes the chunks whose entries it owns, and every process
+    gets the whole batch's results.  Returns ``(person_ids,
+    confidences)``."""
     devices = mesh.axis_devices(data_axis)
+    owners = mesh.axis_owners(data_axis)
     b = crops.shape[0]
     if b % len(devices):
         raise ValueError(f"batch {b} not divisible by data axis {len(devices)}")
+    if mesh.rank not in owners:
+        raise ValueError(f"process {mesh.rank} owns no entry along {data_axis!r}")
+    first = mesh.first_device
     replicas = {}
-    ids, conf = [], []
-    for device, chunk in zip(devices, torch.chunk(crops, len(devices))):
+    ids, conf = {}, {}
+    for i, (device, owner, chunk) in enumerate(zip(devices, owners,
+                                                   torch.chunk(crops, len(devices)))):
+        if owner != mesh.rank:
+            continue
         if device not in replicas:
             replicas[device] = _replicate(model, device)
-        i, c = recognize(replicas[device], chunk.to(device), threshold)
-        ids.append(i.to(mesh.first_device))
-        conf.append(c.to(mesh.first_device))
-    return torch.cat(ids), torch.cat(conf)
+        chunk_ids, chunk_conf = recognize(replicas[device], chunk.to(device), threshold)
+        ids[i], conf[i] = chunk_ids.to(first), chunk_conf.to(first)
+    if not mesh.spans_processes:
+        return torch.cat(list(ids.values())), torch.cat(list(conf.values()))
+    return _gather_chunks(ids, owners), _gather_chunks(conf, owners)
 
 
 def sharded_gallery_match(
@@ -103,8 +137,10 @@ def sharded_gallery_match(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cosine match against a gallery split over the ``model`` axis:
     each shard's winner, then a first-occurrence argmax over the shards.
-    Returns ``(person_ids (B,), confidences (B,))`` on the mesh's first
-    device; a confidence below ``threshold`` gives id -1.
+    Returns ``(person_ids (B,), confidences (B,))`` on the process's first
+    device; a confidence below ``threshold`` gives id -1.  On a mesh that
+    spans processes every process matches on its own row, as the JAX
+    package's replicas along the data axis do.
 
     N is padded to a multiple of the model axis with label -1, and the
     rows are split into contiguous shards.  Rows with a negative label,
@@ -134,7 +170,7 @@ def sharded_gallery_match(
     different row for about 1% of the probes
     (``tests/test_torch_sharding.py`` pins the counts).
     """
-    devices = mesh.axis_devices(model_axis)
+    devices = mesh.local_axis_devices(model_axis)
     first = mesh.first_device
     if use_kernel is None:
         use_kernel = first.type == "cuda"
@@ -190,13 +226,14 @@ def snapshot_pca_sharded(
     Each shard centres its columns; the ``(n, n)`` Gram blocks are summed
     over the shards in order and ``eigh`` runs once, on the first device;
     the back-projection stays sharded, and the component norms and the
-    projection are sums over the shards again.  Returns whole tensors on
-    the first device: components ``(k, d)``, mean ``(d,)``, projected
+    projection are sums over the shards again.  Every process of a mesh
+    that spans processes runs it whole on its own row.  Returns whole
+    tensors on the process's first device: components ``(k, d)``, mean ``(d,)``, projected
     ``(n, k)`` and eigenvalues ``(k,)`` descending, with the order and
     sign semantics of :func:`..linalg.pca.snapshot_pca`.
     """
     n, d = x.shape
-    devices = mesh.axis_devices(model_axis)
+    devices = mesh.local_axis_devices(model_axis)
     n_shards = len(devices)
     if d % n_shards:
         raise ValueError(f"feature dim {d} not divisible by {n_shards}")
@@ -239,7 +276,8 @@ def multichip_train_step(
     probe batch matched against the new gallery, sharded over the model
     axis (every label is 0, the threshold 0.5).  Returns ``(ids, conf,
     eigenvalues)``.  ``data_axis`` is taken for the JAX signature; as
-    there, nothing in the step is split over it."""
+    there, nothing in the step is split over it, so on a mesh that spans
+    processes every process runs the whole step."""
     comps, mean, proj, eigval = snapshot_pca_sharded(mesh, images, n_components, model_axis)
     model = EigenfacesModel(
         components=comps,

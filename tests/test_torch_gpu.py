@@ -655,3 +655,99 @@ def test_cli_computes_on_the_card_by_default(cuda_device, tmp_path, monkeypatch,
     assert resolve_device(seen[0]).type == "cuda"
     assert tcli.main(["bench", "--streams", "1", "--frames", "2", "--size", "544p"]) == 0
     assert '"self_check": "ok"' in capsys.readouterr().out
+
+
+# A rank: joins the group (NCCL unless the second argument is "gloo"),
+# builds global_mesh over its entries of its card, runs the step the third
+# argument names on the inputs in DIR and writes its results there.
+_DIST_WORKER = """
+import sys
+
+import torch
+import torch.distributed as dist
+
+from face_detection_recognization_pca_tpu_torch.models import eigenfaces as ef
+from face_detection_recognization_pca_tpu_torch.parallel import (
+    dp_recognize, global_mesh, initialize_multihost, multichip_train_step)
+
+where, backend, step = sys.argv[1:4]
+assert initialize_multihost(backend=None if backend == "nccl" else backend)
+try:
+    assert dist.get_backend() == backend
+    dev = torch.device("cuda", torch.cuda.current_device())
+    saved = torch.load(where + "/inputs.pt")
+    if step == "train":
+        mesh = global_mesh(data=1, model=8, devices=[dev] * 8)
+        out = multichip_train_step(mesh, saved["images"].to(dev), saved["probes"].to(dev), 16,
+                                   (64, 64))
+    else:
+        mesh = global_mesh(data=2, model=4, devices=[dev] * 4)
+        assert mesh.spans_processes
+        model = ef.from_params({k: None if v is None else v.numpy()
+                                for k, v in saved["params"].items()}, (64, 64), "v1", dev)
+        out = dp_recognize(mesh, model, saved["crops"].to(dev), 0.5)
+    torch.save([t.cpu() for t in out], f"{where}/rank{dist.get_rank()}.pt")
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _run_ranks(tmp_path, world: int, backend: str, step: str) -> list:
+    """Each rank's results; every rank must exit 0 within 120 s."""
+    from local_ranks import check_exits, run_ranks
+
+    check_exits(run_ranks(["-c", _DIST_WORKER, str(tmp_path), backend, step], world, tmp_path))
+    return [torch.load(tmp_path / f"rank{rank}.pt") for rank in range(world)]
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_train_step_equals_the_one_process_mesh(cuda_device, tmp_path):
+    """A real NCCL group of one rank on the card: ``multichip_train_step``
+    over ``global_mesh(data=1, model=8)`` gives the bits of the in-process
+    (1, 8) mesh."""
+    import numpy as np
+
+    from face_detection_recognization_pca_tpu_torch.device import exact_float32
+    from face_detection_recognization_pca_tpu_torch.parallel import make_mesh, multichip_train_step
+
+    images = torch.from_numpy(np.random.default_rng(11).normal(110, 20, (64, 4096))
+                              .astype(np.float32))
+    probes = images[:8].reshape(8, 64, 64)
+    torch.save({"images": images, "probes": probes}, tmp_path / "inputs.pt")
+    with exact_float32():
+        want = multichip_train_step(make_mesh(1, 8, devices=[cuda_device] * 8),
+                                    images.to(cuda_device), probes.to(cuda_device), 16, (64, 64))
+    (got,) = _run_ranks(tmp_path, 1, "nccl", "train")
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(got, want))
+    assert got[0].tolist() == [0] * 8 and float(got[1].min()) > 0.999
+
+
+@pytest.mark.gpu
+def test_gloo_ranks_on_one_card_dp_recognize_equals_the_one_process_mesh(cuda_device,
+                                                                           tmp_path):
+    """Two gloo ranks, both computing on the one card: each returns all 64
+    results of ``dp_recognize`` over the (2, 4) ``global_mesh``, equal bit
+    for bit to the in-process (2, 4) mesh."""
+    import numpy as np
+
+    from face_detection_recognization_pca_tpu_torch.device import exact_float32
+    from face_detection_recognization_pca_tpu_torch.models import eigenfaces as ef
+    from face_detection_recognization_pca_tpu_torch.parallel import dp_recognize, make_mesh
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(120, 30, (48, 4096)).astype(np.float32)
+    crops = np.concatenate([x, x[:16]])  # 64 crops: noisy copies of the training images
+    crops = (crops + rng.normal(0, 5, crops.shape)).astype(np.float32).reshape(64, 64, 64)
+    model, _ = ef.train_v1(torch.from_numpy(x).to(cuda_device), 24)
+    model.labels = torch.arange(48, dtype=torch.int32, device=cuda_device) % 12
+    params = {name: None if getattr(model, name) is None else getattr(model, name).cpu()
+              for name in ef.PARAM_NAMES}
+    torch.save({"params": params, "crops": torch.from_numpy(crops)}, tmp_path / "inputs.pt")
+    with exact_float32():
+        want = dp_recognize(make_mesh(2, 4, devices=[cuda_device] * 8), model,
+                            torch.from_numpy(crops).to(cuda_device), 0.5)
+    got = _run_ranks(tmp_path, 2, "gloo", "dp")
+    for rank_out in got:
+        assert rank_out[0].shape == (64,)
+        assert all(torch.equal(a, b.cpu()) for a, b in zip(rank_out, want))
+    assert want[0].tolist() == (torch.arange(64) % 48 % 12).tolist()

@@ -44,7 +44,7 @@ def test_port_imports_no_jax():
     )
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 57  # every module was found and imported
+    assert int(proc.stdout.split()[-1]) >= 58  # every module was found and imported
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
