@@ -26,11 +26,13 @@ Phases, each printing a line:
    ``torch.profiler``'s kernel sums as a cross-check, beside the card's
    bound for the same work; the same at B = 512 (``b512`` in the JSON
    line);
-4. the tracker slice: ``tracker_assets`` at 1080p with 64 streams and 8
-   frame batches (seed 4), a snapshot-PCA model trained on the card, then
-   8 ``process_batch`` steps and one 8-frame ``process_window``; every
-   position and gallery row must be the planted one, and the kernel's
-   launch count must show that both paths went through it;
+4. the tracker slice: ``bench.tracker_recognizer`` at 1080p with 64
+   streams and 8 frame batches (seed 4), a snapshot-PCA model trained on
+   the card, then 8 ``process_batch`` steps and one 8-frame
+   ``process_window``; every position and gallery row must be the planted
+   one, and the kernel's launch count must show that both paths went
+   through it.  Then ``bench.tracker`` at the same size, which must
+   publish both fps at its planted-exact check, with 64 launches;
 5. gallery kernel against plain: ``gallery_match`` against
    ``_gallery_match_plain`` at the JAX shape (B 1024, k 128, N 131072) in
    float32 and bfloat16, ragged B and N, sentinel rows, a valid zero-norm
@@ -55,8 +57,14 @@ Phases, each printing a line:
    512, D = 9216, k = 64, N = 256).  It prints frames/s/card, the step's
    ms, the kernels' ms and launches per dispatch and their share of the
    step (``torch.profiler``), TFLOP/s by the closed form, and the seconds
-   of a 969 x 4096, k = 100 PCA training.  Every planted offset and
-   gallery row must be exact and the kernel must have been launched;
+   of a 969 x 4096, k = 100 PCA training, each timing window on the host
+   clock and by CUDA events, and the float32 peak's share.  Every planted
+   offset and gallery row must be exact and the kernel must have been
+   launched.  Then ``bench.headline_geom256`` (window 256, template 128,
+   24 streams x 32 batches: one launch at B = 768, D = 16384 per
+   dispatch), planted-exact, and the fused kernel held against plain at
+   that shape and timed beside plain, ``crops @ m`` and the bound
+   (``b768_d16384`` in the JSON line);
 8. the tracked scan of one video, without OpenCV: a model trained on the
    card is written with ``to_artifact`` + ``save_model_v1`` into a
    temporary lock directory beside a detection JSON, read back by
@@ -155,8 +163,11 @@ Phases, each printing a line:
     (0.8), ``evaluate_model`` of each crop on the card must equal it on
     the model copied to the CPU: the same id, confidence within 1e-5.  Then
     ``cli.main(["bench", "--streams", "4", "--size", "1080p"])`` with no
-    ``--device`` must print a JSON line whose self-check holds, and launch
-    ``fused_match`` (``launches_by_path["cli_bench"]``);
+    ``--device``, three times: each must print a JSON line whose
+    self-check holds, and launch ``fused_match``
+    (``launches_by_path["cli_bench"]``); each reading's windows on the host
+    clock and by CUDA events are printed, and the spread of both over all
+    nine;
 16. multi-process meshes on ``torch.distributed``: the script starts
     itself again as workers (``--distributed-worker``), which join a group
     through ``parallel.distributed.initialize_multihost`` and build
@@ -170,31 +181,49 @@ Phases, each printing a line:
     ``global_mesh(data=2, model=4)`` from 4 entries per rank, the train
     step and ``dp_recognize`` of the 1024 crops, and
     ``bench.dryrun_multichip(8, n_hosts=2)``, which must print its two
-    lines.  This process's one-process meshes of the same shapes give the
-    references, each held first: the train step against the dense
-    ``snapshot_pca`` as in phase 6, the gallery kernel on every shard of
-    the step's gallery (256 probes, k 128, 256 rows a shard on (1, 8) and
-    512 on (2, 4)) against its plain version, the shards' bests combined
-    equal to the step's confidences, and ``dp_recognize`` against
-    ``recognize``.  Every rank's results must equal the reference of its
-    mesh's shape bit for bit, and its gallery kernel launches are counted
-    around its main path (``launches_by_path["distributed"]``, summed over
-    the ranks).  A rank
-    that exits nonzero, outlives 300 s or prints no result fails the run.
-    It prints the seconds to join, the ms per call of each step, the ms per
-    ``all_gather_in_rank_order`` of the 1024 results and the launches per
-    rank.
+    lines.  On both meshes each rank also runs the tracker slice (phase
+    4's 64 streams of 1080p, 8 frame batches on the NCCL rank and 4 on the
+    gloo pair, a model the parent trained): every ``process_batch``
+    step, one ``process_window`` and the final origins.  This process's
+    one-process meshes of the same shapes give the references, each held
+    first: the train step against the dense ``snapshot_pca`` as in phase
+    6, the gallery kernel on every shard of the step's gallery (256
+    probes, k 128, 256 rows a shard on (1, 8) and 512 on (2, 4)) against
+    its plain version, and on shard 0 both against the cosines in float64
+    on the card, the shards' bests combined equal to the step's
+    confidences, ``dp_recognize`` against ``recognize``, and the tracker
+    planted-exact.  Every rank's results must equal the reference of its
+    mesh's shape bit for bit, and its kernel launches are counted around
+    its main path (``launches_by_path["distributed"]`` for the gallery
+    kernel, ``["tracker_distributed"]`` for the fused one, summed over the
+    ranks).  A rank that exits nonzero, outlives 300 s or prints no result
+    fails the run.  It prints the seconds to join, the ms per call of each
+    step, the tracker's ms per frame step, the ms of its gather of a
+    step's windows and of ``all_gather_in_rank_order`` of the 1024
+    results, and the launches per rank;
+17. the end-to-end video loop without OpenCV: ``bench.e2e_frames`` on 160
+    uint8 BGR 1080p frames of one planted person
+    (``bench.haar_bgr_frames``, seed 17), batch 16, decode, annotation
+    and encode left out.  It must train on at least 4 crops, the Haar
+    variant must detect in every frame, and the same detector on the
+    same gray frames must give each frame's planted face as its largest
+    box; then on two batches of 240 x 320 frames the card's training
+    crops, detections and recognitions of both variants must equal the
+    CPU's (a 1080p Haar frame takes seconds on the CPU).  It prints both
+    variants' frames/s.
 
 The line before the last is a JSON object describing each kernel, with
 its time, its plain version's, ``library_ms``, its HMMA counts, its
 launches by phase (``launches_by_path``; ``launches`` is their sum) and
 ``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and
 its operations over the published dense peak of their type (fp32 67,
-TF32 495, bf16 989 TFLOP/s; float32 products count as three TF32
-products, the 3xTF32 both kernels run).  For the fused kernel ``ms``,
+TF32 495, bf16 989 TFLOP/s, ``bench.PEAK_FLOPS``; float32 products count
+as three TF32 products, the 3xTF32 both kernels run).  For the fused kernel ``ms``,
 ``plain_ms`` and ``library_device_ms`` are device-only (CUDA graph)
 times, and ``event_loop_ms``, ``plain_event_loop_ms`` and ``library_ms``
-the event-loop ones.  The last line is ``{"ok": true, "device":
+the event-loop ones; ``b512``, ``d16384`` and ``b768_d16384`` hold the
+same at the headline's, the multi-model scan's and geom256's shapes.
+The last line is ``{"ok": true, "device":
 {...}}``.  Any failed check raises,
 so the script exits nonzero without that line, as it does when PyTorch
 sees no CUDA device.
@@ -271,7 +300,9 @@ from face_detection_recognization_pca_tpu_torch.parallel import (
 from face_detection_recognization_pca_tpu_torch.parallel.distributed import GROUP_VARS
 from face_detection_recognization_pca_tpu_torch.parallel.multistream import (
     MultiStreamRecognizer,
+    slice_windows,
 )
+from face_detection_recognization_pca_tpu_torch.parallel.sharding import _gather_chunks
 from face_detection_recognization_pca_tpu_torch.ops.preprocess import preprocess_crops
 from face_detection_recognization_pca_tpu_torch.ops.resize import resize_bilinear
 from face_detection_recognization_pca_tpu_torch.pipeline.detect_app import (
@@ -301,6 +332,7 @@ CONF_ATOL_BF16 = 2e-3  # bf16 operands, against plain with the same rounding
 NEAR_TIE = 1e-5  # a differing id on random data: plain cosines this close
 STREAMS, BATCHES, SEED = 64, 8, 4
 HEADLINE_STREAMS, HEADLINE_BATCHES = 16, 32
+G256_STREAMS = 24  # bench.headline_geom256's default: 768 windows of 256 x 256 per dispatch
 SCAN_FRAMES, SCAN_BATCH, SCAN_SEED, SCAN_PERSON = 256, 16, 7, "planted_person"
 DETECT_BATCH, DETECT_TEMPLATES, DETECT_SEED = 16, 8, 3
 MULTISCAN_FRAMES, MULTISCAN_BATCH, MULTISCAN_SEED, MULTISCAN_SIDE = 64, 16, 5, 128
@@ -310,6 +342,10 @@ CCOEFF_BATCH, CCOEFF_SEED, CCOEFF_K = 4, 11, 128
 CCOEFF_BAND = 1e-4  # of the largest |score|: a near-tie at rank k
 ENHANCED_SCAN, ENHANCED_SEED, ENHANCED_K = 16, 12, 100
 FLOW_FRAMES, FLOW_SEED = 48, 13
+CLI_BENCH_READINGS = 3
+# Phase 17: bench_e2e_video's defaults (160 frames, batch 16) on 1080p
+# frames; the card against the CPU on two batches of 240 x 320 frames.
+E2E_FRAMES, E2E_BATCH, E2E_SEED, E2E_CPU_SIZE = 160, 16, 17, (240, 320)
 GALLERY_B, GALLERY_K, GALLERY_N, GALLERY_SEED = 1024, 128, 1_048_573, 9
 JAX_SHAPE_N = 131072  # the JAX package's per-chip target (bench_large_gallery)
 TRAIN_N, TRAIN_SIDE, TRAIN_K, TRAIN_SEED = 2048, 64, 128, 6
@@ -323,9 +359,10 @@ EIG_RTOL, RECON_RTOL = 1e-4, 1e-3
 DIST_TIMEOUT, DIST_GATHER_CALLS = 300, 50
 DIST_MESHES = {"nccl": (1, 8), "gloo": (2, 4)}  # (data, model) over the ranks' entries
 DIST_WORLD = {"nccl": 1, "gloo": 2}
-# One H100 SXM, published dense peaks at 700 W (NVIDIA's data sheet).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
+# The tracker slice across processes: phase 4's 64 streams of 1080p, 8
+# frame batches on the NCCL rank and 4 on the gloo pair, whose two ranks
+# share the card and gather every step's windows through host copies.
+DIST_TRACKER_BATCHES = {"nccl": 8, "gloo": 4}
 KERNELS = {
     "fused_match": {
         "name": "fused_match",
@@ -350,8 +387,8 @@ def check(cond: bool, what: str) -> None:
 def bound(nbytes: float, flops: float, kind: str) -> dict:
     """The least ms the card could take: bytes over HBM's rate or FLOPs over
     the peak of their type, whichever is larger, and which one it is."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[kind] * 1e3
+    by_bytes = nbytes / bench.HBM_BYTES_PER_S * 1e3
+    by_ops = flops / bench.PEAK_FLOPS[kind] * 1e3
     if by_bytes >= by_ops:
         return {"bound_ms": by_bytes, "bound_by": "bytes"}
     return {"bound_ms": by_ops, "bound_by": "operations"}
@@ -612,37 +649,20 @@ def phase_kernel_vs_plain(dev) -> dict:
 def phase_slice(dev, card: str) -> int:
     h, w = bench.SIZES["1080p"]
     t0 = time.perf_counter()
-    frames, gallery_images, face, plants = bench.tracker_assets(
-        STREAMS, (h, w), BATCHES, SEED, dev
-    )
-    model, _ = train_v1(gallery_images, n_components=bench.N_COMPONENTS)
-    model.labels = torch.arange(bench.GALLERY_N, dtype=torch.int32, device=dev) % 4
-    msr = MultiStreamRecognizer(model, face, window=bench.WIN)
-    boxes0 = np.stack(
-        [plants[0, :, 1], plants[0, :, 0], np.zeros(STREAMS), np.zeros(STREAMS)], axis=1
-    ).astype(np.int32)
+    msr, frames, plants, boxes0 = bench.tracker_recognizer(STREAMS, (h, w), BATCHES, SEED, dev)
     torch.cuda.synchronize()
     print(f"[slice] assets + training {time.perf_counter() - t0:.2f} s; frames "
           f"{tuple(frames.shape)} {frames.numel() * 4 / 1e9:.2f} GB on {card}")
 
-    def run_batches():
-        state = msr.init_state(STREAMS, (h, w), boxes0)
-        outs = []
-        for f in range(BATCHES):
-            out, state = msr.process_batch(frames[f], state)
-            outs.append(out)
-        torch.cuda.synchronize()
-        return outs, state
-
-    def run_window():
-        state = msr.init_state(STREAMS, (h, w), boxes0)
-        out, state = msr.process_window(frames, state)
-        torch.cuda.synchronize()
-        return out, state
-
     fused_match.launches = gallery_match.launches = 0
-    outs, state_b = run_batches()
-    wout, state_w = run_window()
+    state = msr.init_state(STREAMS, (h, w), boxes0)
+    outs = []
+    for f in range(BATCHES):
+        out, state = msr.process_batch(frames[f], state)
+        outs.append(out)
+    state_b = state
+    wout, state_w = msr.process_window(frames, msr.init_state(STREAMS, (h, w), boxes0))
+    torch.cuda.synchronize()
     launches = fused_match.launches
 
     check(launches == 2 * BATCHES, f"fused_match launched {launches} times, want {2 * BATCHES}")
@@ -662,20 +682,25 @@ def phase_slice(dev, card: str) -> int:
     check(bool((wout["person_id"] == 0).all()), "person id of gallery row 0")
     print(f"[slice] planted-exact on both paths; fused_match launches {launches}; "
           f"min conf {float(conf.min()):.6f}, min template conf {float(tm_conf.min()):.6f}")
+    del msr, frames, outs, wout
 
-    # Step time, for information: host clock around synchronised runs.
-    best_b = best_w = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run_batches()
-        best_b = min(best_b, (time.perf_counter() - t0) / BATCHES)
-        t0 = time.perf_counter()
-        run_window()
-        best_w = min(best_w, (time.perf_counter() - t0) / BATCHES)
-    print(f"[slice] step ms (best of 3, {STREAMS} streams 1080p): process_batch "
-          f"{best_b * 1e3:.3f}, process_window {best_w * 1e3:.3f} per frame step; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}")
-    return launches
+    # bench.tracker: its own assets and model, a verified first pass of each
+    # path, then process_batch best of 3 passes and process_window best of 3.
+    fused_match.launches = 0
+    t0 = time.perf_counter()
+    result = bench.tracker(STREAMS, "1080p", BATCHES, 3, SEED, device=dev)
+    bench_launches = fused_match.launches
+    want = (1 + 3) * BATCHES * 2
+    print(f"[slice] bench.tracker: {json.dumps(result)}; fused_match launches {bench_launches}; "
+          f"{time.perf_counter() - t0:.2f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}")
+    check(result["tracker_planted_pos_exact"] and result["tracker_planted_id_exact"]
+          and result["tracker_window_planted_exact"], "bench.tracker planted-exact")
+    check(result["tracker_fps"] > 0 and result["tracker_window_fps"] > 0,
+          "bench.tracker published both fps")
+    check(bench_launches == want, f"bench.tracker launched fused_match {bench_launches}, "
+          f"want {want}")
+    return launches + bench_launches
 
 
 def _plain_cos(feats, gallery_t, gnorm, rows, dt):
@@ -950,7 +975,9 @@ def phase_gallery_slice(dev, card: str) -> tuple:
     return launches, n1m
 
 
-def phase_headline(dev, card: str) -> int:
+def phase_headline(dev, card: str) -> tuple:
+    """Phase 7; returns the fused kernel's launches in the headline and in
+    geom256, and its times at geom256's shape."""
     fused_match.launches = gallery_match.launches = 0
     t0 = time.perf_counter()
     result = bench.headline(streams=HEADLINE_STREAMS, t_frames=HEADLINE_BATCHES, device=dev)
@@ -960,10 +987,12 @@ def phase_headline(dev, card: str) -> int:
           f"{detail['self_check']} (planted offsets exact {detail['planted_offset_exact']}, "
           f"gallery row 0 {detail['planted_id_rate']}) over {detail['frames_per_dispatch']} "
           f"frames per dispatch; step {detail['step_ms']} ms (host clock, best of 3 windows of "
-          f"20 dispatches); device {detail['device_ms']} ms in {detail['kernel_launches']} "
-          f"kernels per dispatch (torch.profiler), busy share {detail['busy_share']}; "
-          f"{detail['headline_tflops']} TFLOP/s by the closed form of "
-          f"{detail['headline_mflops_per_frame']} MFLOP per frame; fused_match launches "
+          f"20 dispatches: {detail['window_step_ms']} ms; CUDA events around the same windows: "
+          f"{detail['event_step_ms']} ms); device {detail['device_ms']} ms in "
+          f"{detail['kernel_launches']} kernels per dispatch (torch.profiler), busy share "
+          f"{detail['busy_share']}; {detail['headline_tflops']} TFLOP/s by the closed form of "
+          f"{detail['headline_mflops_per_frame']} MFLOP per frame, "
+          f"{detail['headline_tflops_pct']}% of the float32 peak; fused_match launches "
           f"{launches}; PCA train 969x4096 k=100 {detail['pca_train_wall_s_969x4096_k100']} s; "
           f"min conf {detail['min_pca_conf']}, min template conf {detail['min_tm_conf']}; "
           f"phase {time.perf_counter() - t0:.2f} s, peak memory "
@@ -976,7 +1005,61 @@ def phase_headline(dev, card: str) -> int:
           f"the headline launched fused_match {launches} times")
     check(gallery_match.launches == 0, "the headline does not use the gallery kernel")
     check(detail["device_ms"] is not None, "torch.profiler saw the headline's kernels")
-    return launches
+    check(len(detail["window_step_ms"]) == len(detail["event_step_ms"]) == 3,
+          "the headline reports every window on both clocks")
+    torch.cuda.empty_cache()
+
+    # Window 256, template 128: 24 streams x 32 frame batches, one
+    # fused_match launch at B = 768, D = 16384 per dispatch.
+    fused_match.launches = 0
+    t0 = time.perf_counter()
+    g256 = bench.headline_geom256(device=dev)
+    g256_launches = fused_match.launches
+    print(f"[headline] geom256 (window 256, template 128, {G256_STREAMS} streams x 32 frame "
+          f"batches of 1080p): {json.dumps(g256)}; fused_match launches {g256_launches}; "
+          f"phase part {time.perf_counter() - t0:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}")
+    check(g256["g256_self_check"] == "ok" and g256["g256_fps"] > 0,
+          f"geom256 self-check: {g256['g256_self_check']}")
+    check(g256_launches >= 1, "geom256 launched fused_match")
+    torch.cuda.empty_cache()
+    return launches, g256_launches, hold_fused_at(dev, G256_STREAMS * 32, 128 * 128, "geom256")
+
+
+def hold_fused_at(dev, b: int, d: int, tag: str) -> dict:
+    """``fused_match`` against ``recognize_linearized`` at B = ``b``, D =
+    ``d``, k 64, N 256 (crops near rows ``i % 256``): ids equal, conf within
+    ``CONF_ATOL``; then kernel, plain and ``crops @ m`` timed in turns as in
+    phase 3, beside the bound."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    crops, m, bias, gallery_t, gnorm, _ = _match_case(dev, gen, b, d, 64, 256,
+                                                      near=[i % 256 for i in range(b)])
+    lin = LinearizedModel(m, bias, gallery_t, gnorm,
+                          torch.zeros(256, dtype=torch.int32, device=dev), (1, d))
+    ids_k, conf_k = fused_match(crops, m, bias, gallery_t, gnorm)
+    ids_p, conf_p = recognize_linearized(lin, crops)
+    torch.cuda.synchronize()
+    err = float((conf_k - conf_p).abs().max())
+    check(torch.equal(ids_k, ids_p), f"{tag}: fused_match ids equal plain's at B={b} D={d}")
+    check(ids_k.tolist() == [i % 256 for i in range(b)], f"{tag}: every crop finds its row")
+    check(err <= CONF_ATOL, f"{tag}: conf error {err} > {CONF_ATOL}")
+    turns = bench.time_in_turns(
+        {"plain": lambda: recognize_linearized(lin, crops),
+         "kernel": lambda: fused_match(crops, m, bias, gallery_t, gnorm),
+         "library": lambda: crops @ m},
+        ("plain", "kernel", "library", "library", "kernel", "plain"), loop_iters=50,
+        graph_calls=20)
+    mean = {clock: {name: sum(v) / len(v) for name, v in t.items()} for clock, t in turns.items()}
+    bnd = fused_bound(b, d, 64, 256)
+    out = {"max_abs_err": err, "ms": mean["device"]["kernel"],
+           "event_loop_ms": mean["loop"]["kernel"], "plain_ms": mean["device"]["plain"],
+           "plain_event_loop_ms": mean["loop"]["plain"], "library_ms": mean["loop"]["library"],
+           "library_device_ms": mean["device"]["library"], **bnd,
+           "share": bnd["bound_ms"] / mean["device"]["kernel"]}
+    print(f"[kernel] {tag} shape B={b} D={d} k=64 N=256: ids equal plain's, max|dconf| "
+          f"{err:.3g}; mean ms per call {json.dumps(out)}")
+    return out
 
 
 def phase_scan(dev, card: str) -> int:
@@ -1617,25 +1700,45 @@ def phase_flow(dev, card: str) -> int:
           f"of person{bench.PIPELINE_STRANGER} at the gate {gate} {json.dumps(gated)}, crop by "
           f"crop the CPU copy's ids, max|dconf| {eval_err:.3g}; card {card}")
 
+    # fdrp-torch bench --streams 4 (256 frames per dispatch) three times:
+    # each reading's fps, and its windows on the host clock and by CUDA
+    # events, so a slow reading shows which clock saw it.
     fused_match.launches = gallery_match.launches = 0
-    buf = io.StringIO()
+    readings = []
     t2 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["bench", "--streams", "4", "--size", "1080p"])
+    for _ in range(CLI_BENCH_READINGS):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["bench", "--streams", "4", "--size", "1080p"])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        detail = line["detail"]
+        check(rc == 0 and detail["self_check"] == "ok" and line["value"] > 0,
+              f"cli bench self-check: {detail['self_check']}")
+        check(detail["device"] == card, f"cli bench ran on {detail['device']}")
+        check(len(detail["window_step_ms"]) == len(detail["event_step_ms"]) == 3,
+              "cli bench reports every window on both clocks")
+        readings.append(line)
+        print(f"[pipeline] cli.main(['bench', '--streams', '4', '--size', '1080p']) reading "
+              f"{len(readings)}: {line['value']} {line['unit']}, self-check {detail['self_check']}, "
+              f"{detail['frames_per_dispatch']} frames per dispatch, step {detail['step_ms']} ms; "
+              f"windows (ms per dispatch) host clock {detail['window_step_ms']}, CUDA events "
+              f"{detail['event_step_ms']}; device {detail['device_ms']} ms, busy share "
+              f"{detail['busy_share']}")
     bench_s = time.perf_counter() - t2
     launches = fused_match.launches
-    line = json.loads(buf.getvalue().strip().splitlines()[-1])
-    detail = line["detail"]
-    check(rc == 0 and detail["self_check"] == "ok" and line["value"] > 0,
-          f"cli bench self-check: {detail['self_check']}")
-    check(launches >= 1 and launches == detail["fused_match_launches"],
+    check(launches >= CLI_BENCH_READINGS
+          and launches == sum(r["detail"]["fused_match_launches"] for r in readings),
           f"cli bench launched fused_match {launches} times")
-    check(detail["device"] == card, f"cli bench ran on {detail['device']}")
-    print(f"[pipeline] cli.main(['bench', '--streams', '4', '--size', '1080p']) with no --device: "
-          f"{line['value']} {line['unit']}, self-check {detail['self_check']}, "
-          f"{detail['frames_per_dispatch']} frames per dispatch, step {detail['step_ms']} ms, "
-          f"fused_match launches {launches}, {bench_s:.2f} s; phase "
-          f"{time.perf_counter() - t0:.2f} s; card {card}")
+
+    def spread(values) -> str:
+        return f"{min(values):.4f}-{max(values):.4f} ({max(values) / min(values):.3f}x)"
+
+    host = [v for r in readings for v in r["detail"]["window_step_ms"]]
+    event = [v for r in readings for v in r["detail"]["event_step_ms"]]
+    print(f"[pipeline] cli bench, {CLI_BENCH_READINGS} readings with no --device: frames/s/card "
+          f"{[r['value'] for r in readings]}; ms per dispatch over all {len(host)} windows: host "
+          f"clock {spread(host)}, CUDA events {spread(event)}; fused_match launches {launches}, "
+          f"{bench_s:.2f} s; phase {time.perf_counter() - t0:.2f} s; {card_and_limit()}")
     return launches
 
 
@@ -1667,6 +1770,42 @@ def _distributed_calls(mode: str, mesh, inputs: tuple, model, crops) -> dict:
                 lambda g=g: sharded_gallery_match(mesh, feats, g, labels))
     calls["dp"] = lambda: dp_recognize(mesh, model, crops)
     return calls
+
+
+def _tracker_case(mode: str, dev) -> tuple:
+    """``(frames, face, plants, boxes0)`` of the tracker slice across
+    processes in ``mode``, made again from phase 4's seed wherever it is
+    needed: the frames are noise from a generator on the card."""
+    h, w = bench.SIZES["1080p"]
+    frames, _, face, plants = bench.tracker_assets(STREAMS, (h, w), DIST_TRACKER_BATCHES[mode],
+                                                   SEED, dev)
+    boxes0 = np.stack([plants[0, :, 1], plants[0, :, 0], np.zeros(STREAMS), np.zeros(STREAMS)],
+                      axis=1).astype(np.int32)
+    return frames, face, plants, boxes0
+
+
+def _track_case(msr, frames, boxes0) -> dict:
+    """One pass of ``process_batch`` over every frame batch and one
+    ``process_window`` of them all, from the first plants: the results and
+    final origins on the host."""
+    hw = tuple(frames.shape[2:])
+    state = msr.init_state(STREAMS, hw, boxes0)
+    steps = []
+    for f in range(frames.shape[0]):
+        out, state = msr.process_batch(frames[f], state)
+        steps.append(out)
+    window, window_state = msr.process_window(frames, msr.init_state(STREAMS, hw, boxes0))
+    host = lambda d: {k: v.cpu() for k, v in d.items()}  # noqa: E731
+    return {"batch": [host(o) for o in steps], "batch_origin": state.origin.cpu(),
+            "window": host(window), "window_origin": window_state.origin.cpu()}
+
+
+def _same_track(a: dict, b: dict) -> bool:
+    return (all(torch.equal(x[k], y[k]) for x, y in zip(a["batch"], b["batch"]) for k in x)
+            and len(a["batch"]) == len(b["batch"])
+            and all(torch.equal(a["window"][k], b["window"][k]) for k in a["window"])
+            and torch.equal(a["batch_origin"], b["batch_origin"])
+            and torch.equal(a["window_origin"], b["window_origin"]))
 
 
 def distributed_worker(mode: str, tmp: str) -> int:
@@ -1713,6 +1852,59 @@ def distributed_worker(mode: str, tmp: str) -> int:
                    os.path.join(tmp, f"{mode}_rank{rank}.pt"))
 
         ms = {name: _best_time(fn) * 1e3 for name, fn in calls.items()}
+
+        # The tracker slice on the same mesh, the model the parent trained.
+        frames, face, plants, boxes0 = _tracker_case(mode, dev)
+        tracker_model = from_params(
+            {k: None if v is None else v.numpy() for k, v in saved["tracker"].items()},
+            (bench.TPL, bench.TPL), "v1", dev)
+        msr = MultiStreamRecognizer(tracker_model, face, window=bench.WIN, mesh=mesh)
+        fused_match.launches = 0
+        tracked = _track_case(msr, frames, boxes0)
+        torch.cuda.synchronize()
+        tracker_launches = fused_match.launches
+        steps = frames.shape[0]
+        owned = mesh.axis_owners("data").count(rank)
+        check(tracker_launches == 2 * steps * owned,
+              f"{mode} rank {rank}: fused_match launched {tracker_launches} times for the tracker, "
+              f"want {2 * steps * owned}")
+        check(bench.planted_exact(tracked["batch"], plants)
+              and bench.planted_exact(tracked["window"], plants),
+              f"{mode} rank {rank}: the tracker planted-exact")
+        torch.save(tracked, os.path.join(tmp, f"{mode}_rank{rank}_tracker.pt"))
+        hw = tuple(frames.shape[2:])
+
+        def batch_pass():
+            state = msr.init_state(STREAMS, hw, boxes0)
+            for f in range(steps):
+                state = msr.process_batch(frames[f], state)[1]
+            return state
+
+        step_ms = {"process_batch": _best_time(batch_pass) * 1e3 / steps,
+                   "process_window": _best_time(lambda: msr.process_window(
+                       frames, msr.init_state(STREAMS, hw, boxes0))) * 1e3 / steps}
+        # The step's gather of every window: this rank's chunks of the first
+        # step's windows, gathered chunk by chunk from their owners.
+        owners = mesh.axis_owners("data")
+        windows = torch.chunk(slice_windows(frames[0], msr.init_state(STREAMS, hw, boxes0).origin,
+                                            bench.WIN), len(owners))
+        local = {i: windows[i] for i, owner in enumerate(owners) if owner == rank}
+        dist.barrier()
+        t1 = time.perf_counter()
+        for _ in range(DIST_GATHER_CALLS):
+            gathered = _gather_chunks(local, owners)
+        torch.cuda.synchronize()
+        window_gather_ms = (time.perf_counter() - t1) / DIST_GATHER_CALLS * 1e3
+        check(tuple(gathered.shape) == (STREAMS, bench.WIN, bench.WIN),
+              "the window gather holds every stream's window")
+        print(f"[distributed] {mode} rank {rank}/{world}: tracker, {STREAMS} streams of 1080p, "
+              f"{steps} frame batches, planted-exact, fused_match launches {tracker_launches}; ms "
+              f"per frame step (host clock, best of 3 passes): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items())
+              + f"; gather of the step's {gathered.numel() * 4 / 1e6:.1f} MB of windows "
+              f"{window_gather_ms:.3f} ms")
+        del frames, msr
+
         conf = out["dp"][1]
         dist.barrier()
         t1 = time.perf_counter()
@@ -1730,7 +1922,10 @@ def distributed_worker(mode: str, tmp: str) -> int:
               + f"; all_gather_in_rank_order of the {conf.numel()} float32 confidences "
               f"{gather_ms:.4f} ms ({where})")
         print("RESULT:" + json.dumps({"rank": rank, "launches": launches, "join_s": join_s,
-                                      "ms": ms, "gather_ms": gather_ms}), flush=True)
+                                      "ms": ms, "gather_ms": gather_ms,
+                                      "tracker_launches": tracker_launches,
+                                      "tracker_step_ms": step_ms,
+                                      "window_gather_ms": window_gather_ms}), flush=True)
         if mode == "gloo":
             bench.dryrun_multichip(8, n_hosts=2)
     finally:
@@ -1800,13 +1995,24 @@ def hold_train_step_shards(m, mesh, images, probes, step) -> None:
         gnorm = torch.linalg.vector_norm(shard, dim=1, dtype=torch.float32)
         bests.append(hold_gallery_kernel("distributed", f"train step {m} shard {s}", feats,
                                          shard.T, gnorm, torch.float32, True)[1])
+        if s == 0:
+            # Shard 0 holds the probes' own rows (cosines about 1): both
+            # paths against the cosines in float64 on the card.
+            f64, g64 = feats.double(), shard.double()
+            best64 = ((f64 @ g64.T) / (torch.linalg.vector_norm(f64, dim=1)[:, None]
+                                       * torch.linalg.vector_norm(g64, dim=1)[None, :])).max(1)
+            plain = _gallery_match_plain(feats, shard.T, gnorm, operand_dtype=torch.float32)[1]
+            err_k = float((bests[0].double() - best64.values).abs().max())
+            err_p = float((plain.double() - best64.values).abs().max())
+            print(f"[distributed] train step {m} shard 0 against float64 cosines on the card: "
+                  f"max|dbest| kernel {err_k:.3g}, plain {err_p:.3g}")
     check(torch.equal(torch.stack(bests).max(dim=0).values, step[1]),
           f"{m}: the shards' bests combine to the train step's confidences")
 
 
-def phase_distributed(dev, card: str) -> int:
-    """Phase 16; returns the gallery kernel's launches summed over the
-    ranks' main paths."""
+def phase_distributed(dev, card: str) -> tuple:
+    """Phase 16; returns the gallery kernel's launches and the fused
+    kernel's (the tracker), each summed over the ranks' main paths."""
     t0 = time.perf_counter()
     inputs = _distributed_inputs(dev, with_gallery=True)
     images, probes = inputs[:2]
@@ -1819,9 +2025,25 @@ def phase_distributed(dev, card: str) -> int:
     for dt in inputs[3]:
         check(torch.equal(refs["nccl"][f"match {str(dt)[6:]}"][0], inputs[5]),
               f"one-process (1, 8) {dt}: every probe named by its planted label")
+    # The tracker slice's references: a model trained here (the ranks load
+    # it), each mode's frames through a one-process mesh of its shape.
+    h, w = bench.SIZES["1080p"]
+    _, gallery_images, _, _ = bench.tracker_assets(STREAMS, (h, w), 1, SEED, dev)
+    tracker_model, _ = train_v1(gallery_images, n_components=bench.N_COMPONENTS)
+    tracker_model.labels = torch.arange(bench.GALLERY_N, dtype=torch.int32, device=dev) % 4
+    tracker_refs = {}
+    for mode, shape in DIST_MESHES.items():
+        frames, face, plants, boxes0 = _tracker_case(mode, dev)
+        msr = MultiStreamRecognizer(tracker_model, face, window=bench.WIN,
+                                    mesh=make_mesh(*shape, devices=[dev] * 8))
+        tracker_refs[mode] = _track_case(msr, frames, boxes0)
+        check(bench.planted_exact(tracker_refs[mode]["batch"], plants)
+              and bench.planted_exact(tracker_refs[mode]["window"], plants),
+              f"one-process {shape} tracker planted-exact")
+        del frames, msr
     torch.cuda.synchronize()
-    print(f"[distributed] one-process references on (1, 8) and (2, 4) meshes of {dev}: "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"[distributed] one-process references on (1, 8) and (2, 4) meshes of {dev}, the "
+          f"tracker's planted-exact: {time.perf_counter() - t0:.2f} s")
 
     # The references themselves, on both meshes: the train step against the
     # dense PCA, the gallery kernel on each of the step's shards against its
@@ -1839,11 +2061,12 @@ def phase_distributed(dev, card: str) -> int:
         check(err <= CONF_ATOL, f"{m}: dp_recognize conf error {err}")
         print(f"[distributed] dp_recognize {m} vs recognize, {GALLERY_B} crops: ids equal, "
               f"max|dconf| {err:.3g}")
-    launches = 0
+    launches = tracker_launches = 0
     with tempfile.TemporaryDirectory() as tmp:
-        torch.save({"params": {n: None if getattr(model, n) is None else getattr(model, n).cpu()
-                               for n in PARAM_NAMES}, "crops": crops.cpu()},
-                   os.path.join(tmp, "inputs.pt"))
+        params = lambda m: {n: None if getattr(m, n) is None else getattr(m, n).cpu()  # noqa: E731
+                            for n in PARAM_NAMES}
+        torch.save({"params": params(model), "crops": crops.cpu(),
+                    "tracker": params(tracker_model)}, os.path.join(tmp, "inputs.pt"))
         for mode, shape in DIST_MESHES.items():
             t1 = time.perf_counter()
             outs = _run_ranks(mode, tmp)
@@ -1853,6 +2076,10 @@ def phase_distributed(dev, card: str) -> int:
                 for name, ref in refs[mode].items():
                     check(all(torch.equal(a, b.cpu()) for a, b in zip(got[name], ref)),
                           f"{mode} rank {rank} {name}: bit for bit the one-process {shape} mesh's")
+                tracked = torch.load(os.path.join(tmp, f"{mode}_rank{rank}_tracker.pt"))
+                check(_same_track(tracked, tracker_refs[mode]),
+                      f"{mode} rank {rank} tracker: bit for bit the one-process {shape} mesh's")
+                tracker_launches += result["tracker_launches"]
                 if mode == "gloo":
                     check(f"multi-host: process {rank}/2, 8 global devices" in text
                           and "dryrun_multichip OK: mesh data=2 x model=4" in text,
@@ -1860,11 +2087,59 @@ def phase_distributed(dev, card: str) -> int:
                 launches += result["launches"]
             print(f"[distributed] {mode}, world size {len(outs)}: "
                   + ", ".join(f"{name} {tuple(ref[0].shape)}" for name, ref in refs[mode].items())
-                  + f" equal bit for bit on every rank to the one-process {shape} mesh; gallery_match "
-                  f"launches by rank {[outs[r][1]['launches'] for r in sorted(outs)]}; "
+                  + f", and the tracker's {DIST_TRACKER_BATCHES[mode]} process_batch steps, "
+                  f"process_window and final origins, equal bit for bit on every rank to the "
+                  f"one-process {shape} mesh; gallery_match launches by rank "
+                  f"{[outs[r][1]['launches'] for r in sorted(outs)]}, fused_match (tracker) "
+                  f"{[outs[r][1]['tracker_launches'] for r in sorted(outs)]}; "
                   f"{time.perf_counter() - t1:.2f} s with the ranks' start")
     print(f"[distributed] phase {time.perf_counter() - t0:.2f} s; {card_and_limit()}")
-    return launches
+    return launches, tracker_launches
+
+
+def phase_e2e(dev, card: str) -> None:
+    """Phase 17: ``bench.e2e_frames`` on 1080p frames of one planted person,
+    decode, annotation and encode left out; then both variants on the card
+    and on the CPU on two batches of small frames."""
+    t0 = time.perf_counter()
+    frames, plants = bench.haar_bgr_frames(E2E_FRAMES, bench.SIZES["1080p"], E2E_SEED)
+    fused_match.launches = gallery_match.launches = 0
+    out = bench.e2e_frames(frames, batch=E2E_BATCH, max_frames=E2E_FRAMES, device=dev)
+    check(fused_match.launches == 0 and gallery_match.launches == 0,
+          "the end-to-end loop launches no hand-written kernel")
+    print(f"[e2e] bench.e2e_frames, {E2E_FRAMES} BGR 1080p frames of one person, batch "
+          f"{E2E_BATCH}: {json.dumps(out)}; {time.perf_counter() - t0:.2f} s")
+    check(out.get("e2e_left_out") == ["decode", "annotate", "encode"], "the stages left out")
+    check(out.get("e2e_train_crops", 0) >= 4, f"training crops: {out.get('e2e_train_crops')}")
+    for variant in ("haar", "ncc"):
+        check(out[f"e2e_{variant}_frames"] == E2E_FRAMES, f"{variant}: every frame")
+    check(out["e2e_haar_detected"] == E2E_FRAMES, "the Haar variant detects in every frame")
+    # The boxes behind those detections: the same detector on the same gray
+    # frames, batch by batch, each frame's largest box the planted face.
+    det = haar.HaarDetector(device=dev)
+    for i in range(0, E2E_FRAMES, E2E_BATCH):
+        gray = bgr_to_gray_exact(torch.from_numpy(frames[i:i + E2E_BATCH]).to(dev))
+        for j, boxes in enumerate(det.detect_multi_scale_batch(gray)):
+            check(bool(boxes) and len(bench.haar_planted_boxes(
+                [max(boxes, key=lambda b: b[2] * b[3])], plants[i + j])) == 1,
+                f"frame {i + j}: largest box {boxes} is not the planted face {plants[i + j]}")
+
+    # The card against the CPU, both variants, over two batches: small
+    # frames, since a 1080p Haar frame takes seconds on the CPU.
+    small, _ = bench.haar_bgr_frames(2 * E2E_BATCH, E2E_CPU_SIZE, E2E_SEED, sides=(60, 120))
+    runs = {name: bench.e2e_frames(small, batch=E2E_BATCH, device=where)
+            for name, where in (("card", dev), ("cpu", torch.device("cpu")))}
+    keys = ["e2e_train_crops"] + [f"e2e_{v}_{k}" for v in ("haar", "ncc")
+                                  for k in ("frames", "detected", "recognized")]
+    for key in keys:
+        check(runs["card"][key] == runs["cpu"][key],
+              f"{key}: card {runs['card'][key]}, CPU {runs['cpu'][key]}")
+    print(f"[e2e] every frame's planted face detected; training crops {out['e2e_train_crops']}; "
+          f"frames/s haar {out['e2e_haar_fps']}, ncc {out['e2e_ncc_fps']} (host clock, gray, "
+          f"detection, crops, recognition; no decode, annotation or encode); on two batches of "
+          f"{E2E_CPU_SIZE[0]}x{E2E_CPU_SIZE[1]} frames the card's "
+          + ", ".join(f"{k} {runs['card'][k]}" for k in keys)
+          + f" equal the CPU's; phase {time.perf_counter() - t0:.2f} s; {card_and_limit()}")
 
 
 def main() -> int:
@@ -1880,7 +2155,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     gallery_launches, n1m = phase_gallery_slice(dev, card)
     torch.cuda.empty_cache()
-    by_path = {"tracker": fused_launches, "headline": phase_headline(dev, card)}
+    by_path = {"tracker": fused_launches}
+    by_path["headline"], by_path["geom256"], g256 = phase_headline(dev, card)
     torch.cuda.empty_cache()
     by_path["scan"] = phase_scan(dev, card)
     torch.cuda.empty_cache()
@@ -1894,11 +2170,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["cli_bench"] = phase_flow(dev, card)
     torch.cuda.empty_cache()
-    gallery_by_path = {"large_gallery": gallery_launches,
-                       "distributed": phase_distributed(dev, card)}
+    gallery_by_path = {"large_gallery": gallery_launches}
+    gallery_by_path["distributed"], by_path["tracker_distributed"] = phase_distributed(dev, card)
+    torch.cuda.empty_cache()
+    phase_e2e(dev, card)
     print(json.dumps({"kernels": [
         {**KERNELS["fused_match"], "launches": sum(by_path.values()),
-         "launches_by_path": by_path, **fused, "d16384": d16384, "hmma": hmma["fused_match"]},
+         "launches_by_path": by_path, **fused, "d16384": d16384, "b768_d16384": g256,
+         "hmma": hmma["fused_match"]},
         {**KERNELS["gallery_match"], "launches": sum(gallery_by_path.values()),
          "launches_by_path": gallery_by_path, **gallery, "n_1048573": n1m,
          "hmma": hmma["gallery_match"]},

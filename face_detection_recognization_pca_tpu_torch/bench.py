@@ -54,7 +54,7 @@ group is configured (:func:`dryrun_multichip`).
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterable, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -81,6 +81,7 @@ from face_detection_recognization_pca_tpu_torch.parallel.distributed import (
 )
 from face_detection_recognization_pca_tpu_torch.parallel.mesh import make_mesh
 from face_detection_recognization_pca_tpu_torch.parallel.multistream import (
+    MultiStreamRecognizer,
     StepOperands,
     locate_and_match,
     step_operands,
@@ -92,6 +93,11 @@ WIN = 192  # search window side (guided scanner: 1.5-2x face box)
 TPL = 96  # template / face box side
 GALLERY_N = 256
 N_COMPONENTS = 64
+# One H100 SXM at 700 W, published dense peaks (NVIDIA's data sheet): HBM
+# bytes/s, and FLOP/s by operand type (float32 outside the tensor cores,
+# TF32 and bf16 on them).  A roofline share is taken against these.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 
 
 def _planted_face(rng: np.random.Generator, tpl: int) -> np.ndarray:
@@ -299,6 +305,110 @@ def planted_exact(
         and np.array_equal(y, plants[..., 0])
         and np.all(rows == 0)
     )
+
+
+def tracker_recognizer(
+    streams: int,
+    size: Tuple[int, int],
+    batches: int,
+    seed: int,
+    device: torch.device,
+    mesh=None,
+):
+    """``(msr, frames, plants, boxes0)`` for the tracker: the
+    :func:`tracker_assets` frames and plants, a snapshot-PCA model trained
+    on ``device`` on the gallery images with labels ``arange(256) % 4``,
+    the :class:`..parallel.multistream.MultiStreamRecognizer` of it (over
+    ``mesh`` when given), and the first plants as (x, y, 0, 0) boxes for
+    ``init_state``."""
+    frames, gallery_images, face, plants = tracker_assets(streams, size, batches, seed, device)
+    model, _ = train_v1(gallery_images, n_components=N_COMPONENTS)
+    model.labels = torch.arange(GALLERY_N, dtype=torch.int32, device=device) % 4
+    msr = MultiStreamRecognizer(model, face, window=WIN, mesh=mesh)
+    boxes0 = np.stack(
+        [plants[0, :, 1], plants[0, :, 0], np.zeros(streams), np.zeros(streams)], axis=1
+    ).astype(np.int32)
+    return msr, frames, plants, boxes0
+
+
+def tracker(
+    streams: int = 64,
+    size: str = "1080p",
+    batches: int = 8,
+    loops: int = 3,
+    seed: int = 4,
+    mesh=None,
+    device: Optional[torch.device] = None,
+) -> Dict[str, object]:
+    """Throughput of the shipped tracker (port of ``bench_tracker``):
+    :class:`..parallel.multistream.MultiStreamRecognizer` over ``streams``
+    streams of :func:`tracker_assets` frames, whose planted faces drift
+    by up to 2 px per frame batch, from the first plants on, so the
+    tracker must re-centre to keep finding them.  ``device=None`` means
+    the CUDA device; with ``mesh`` the streams are split over its data
+    axis, across processes too (each process then runs this whole
+    function).
+
+    ``tracker_step_ms``: ``process_batch`` per frame step, host clock
+    around a synchronised pass of ``batches`` steps, best of ``loops``
+    passes after a first pass; ``tracker_window_step_ms``: the same for
+    one ``process_window`` of all batches, best of ``max(3, loops)``.
+    Each fps is 0 unless its first pass reported every planted (x, y)
+    exactly and gallery row 0 everywhere.  The JAX function kept taking
+    windows until it reached a target or 120 s passed, to outlast pauses
+    of a remote TPU worker; a card has none, so this takes ``loops``."""
+    device = resolve_device(device)
+    h, w = SIZES[size]
+    msr, frames, plants, boxes0 = tracker_recognizer(streams, (h, w), batches, seed, device,
+                                                     mesh)
+
+    def run_pass():
+        state = msr.init_state(streams, (h, w), boxes0)
+        outs = []
+        for f in range(batches):
+            out, state = msr.process_batch(frames[f], state)
+            outs.append(out)
+        _synchronize(device)
+        return outs
+
+    def run_window():
+        out, _ = msr.process_window(frames, msr.init_state(streams, (h, w), boxes0))
+        _synchronize(device)
+        return out
+
+    outs = run_pass()
+    x, y, rows = ([o[key].cpu().numpy() for o in outs] for key in ("x", "y", "gallery_row"))
+    ok_pos = bool(np.array_equal(x, plants[..., 1]) and np.array_equal(y, plants[..., 0]))
+    ok_id = bool(np.all(np.stack(rows) == 0))
+    conf = torch.stack([o["confidence"] for o in outs])
+    dt = float("inf")
+    for _ in range(loops):
+        t0 = time.perf_counter()
+        run_pass()
+        dt = min(dt, (time.perf_counter() - t0) / batches)
+
+    ok_w = planted_exact(run_window(), plants)
+    dt_w = float("inf")
+    for _ in range(max(3, loops)):
+        t0 = time.perf_counter()
+        run_window()
+        dt_w = min(dt_w, (time.perf_counter() - t0) / batches)
+    ok = ok_pos and ok_id
+    return {
+        "tracker_fps": streams / dt if ok else 0.0,
+        "tracker_step_ms": dt * 1e3,
+        "tracker_window_fps": streams / dt_w if ok_w else 0.0,
+        "tracker_window_step_ms": dt_w * 1e3,
+        "tracker_window_planted_exact": ok_w,
+        "tracker_windows": loops,
+        "tracker_streams": streams,
+        "tracker_batches": batches,
+        "tracker_size": size,
+        "tracker_planted_pos_exact": ok_pos,
+        "tracker_planted_id_exact": ok_id,
+        "tracker_min_conf": float(conf.min()),
+        "tracker_engine": "parallel.multistream.MultiStreamRecognizer",
+    }
 
 
 def large_gallery_assets(b: int, k: int, n: int, seed: int, device: torch.device):
@@ -590,14 +700,19 @@ def headline(
     secondary.  ``device=None`` means the CUDA device.
 
     A dispatch is timed by the host clock around ``iters`` synchronised
-    dispatches, best of 3 such windows after ``warmup`` dispatches.  The fps
+    dispatches, best of 3 such windows after ``warmup`` dispatches;
+    ``window_step_ms`` holds every window's ms per dispatch, and on a CUDA
+    device ``event_step_ms`` the same windows by CUDA events (``None``
+    elsewhere), so a slow window shows which clock saw it.  The fps
     is published only if the step recognized what was planted: every
     reported position equals the planted one and every gallery row is 0,
     over all frames; otherwise ``value`` is 0.  On a CUDA device
     ``torch.profiler`` also gives the kernel time and launches per dispatch
     (``device_ms``, ``kernel_launches``) and their share of the step
-    (``busy_share``).  ``fused_match_launches`` counts this function's
-    launches of the fused kernel.  The secondary: ``snapshot_pca`` of 969 x
+    (``busy_share``), and ``headline_tflops_pct`` is the closed-form
+    TFLOP/s as a share of the card's float32 peak (:data:`PEAK_FLOPS`).
+    ``fused_match_launches`` counts this function's launches of the fused
+    kernel.  The secondary: ``snapshot_pca`` of 969 x
     4096 float32 at k = 100 (the reference's multi-person scale), second
     call, synchronised."""
     device = resolve_device(device)
@@ -613,13 +728,23 @@ def headline(
     for _ in range(1 + warmup):
         out = dispatch()
     _synchronize(device)
-    dt = float("inf")
+    window_step, event_step = [], None
+    if device.type == "cuda":
+        event_step = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for _ in range(3):
+        if event_step is not None:
+            start.record()
         t0 = time.perf_counter()
         for _ in range(iters):
             out = dispatch()
+        if event_step is not None:
+            end.record()
         _synchronize(device)
-        dt = min(dt, (time.perf_counter() - t0) / iters)
+        window_step.append((time.perf_counter() - t0) / iters * 1e3)
+        if event_step is not None:
+            event_step.append(start.elapsed_time(end) / iters)
+    dt = min(window_step) / 1e3
     n_frames = t_frames * streams
     fps = n_frames / dt
 
@@ -648,6 +773,7 @@ def headline(
             train_wall_s = time.perf_counter() - t1
 
     flops_frame = headline_flops_per_frame(model.n_components, model.gallery.shape[0], win, tpl)
+    tflops = fps * flops_frame / 1e12
     name = next((key for key, hw in SIZES.items() if hw == tuple(size)), f"{size[0]}x{size[1]}")
     return {
         "metric": f"recognized {name} frames/sec/card (fused guided detect+project+match, "
@@ -658,12 +784,18 @@ def headline(
             "streams": streams,
             "frames_per_dispatch": n_frames,
             "step_ms": dt * 1e3,
+            "window_step_ms": window_step,
+            "event_step_ms": event_step,
             "device_ms": device_ms,
             "kernel_launches": kernel_launches,
             "busy_share": busy_share,
             "fused_match_launches": launches,
             "headline_mflops_per_frame": flops_frame / 1e6,
-            "headline_tflops": fps * flops_frame / 1e12,
+            "headline_tflops": tflops,
+            # The step runs in full float32 (exact_float32): its share of the
+            # card's float32 FFMA peak.  Only a card's time has one.
+            **({"headline_tflops_pct": 100.0 * tflops * 1e12 / PEAK_FLOPS["fp32"]}
+               if device.type == "cuda" else {}),
             "min_pca_conf": float(conf.min()),
             "min_tm_conf": float(tm_conf.min()),
             "planted_offset_exact": offset_exact,
@@ -672,6 +804,31 @@ def headline(
             "pca_train_wall_s_969x4096_k100": train_wall_s,
             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         },
+    }
+
+
+def headline_geom256(
+    streams: int = 24,
+    iters: int = 20,
+    size: Tuple[int, int] = SIZES["1080p"],
+    t_frames: int = 32,
+    device: Optional[torch.device] = None,
+) -> Dict[str, object]:
+    """The headline step at window 256 and template 128 (port of
+    ``bench_headline_geom256``): :func:`headline` with those sides, no PCA
+    training, under ``g256_`` keys, so the metric of record keeps the
+    192 / 96 geometry.  The same planted-exact self-check zeroes
+    ``g256_fps``.  ``device=None`` means the CUDA device."""
+    out = headline(streams=streams, size=size, iters=iters, win=256, tpl=128,
+                   t_frames=t_frames, with_train=False, device=device)
+    d = out["detail"]
+    return {
+        "g256_fps": out["value"],
+        "g256_step_ms": d["step_ms"],
+        "g256_mflops_per_frame": d["headline_mflops_per_frame"],
+        "g256_tflops": d["headline_tflops"],
+        "g256_tflops_pct": d.get("headline_tflops_pct"),
+        "g256_self_check": d["self_check"],
     }
 
 
@@ -1138,3 +1295,316 @@ def pipeline_assets(n_frames: int, size: Tuple[int, int], seed: int):
             crops.append(np.ascontiguousarray(frame[y + m:y + m + side, x + m:x + m + side]))
         ids += [pid] * 16
     return frames, plants, crops, ids
+
+
+def _e2e(
+    open_frames: Callable[[], Iterable[np.ndarray]],
+    batch: int,
+    max_frames: int,
+    resize_to: Optional[str],
+    variants: Sequence[str],
+    label_prefix: str,
+    annotate: Optional[Callable],
+    write: Optional[Callable[[str, np.ndarray], None]],
+    left_out: Sequence[str],
+    source: Dict[str, object],
+    device: torch.device,
+) -> Dict[str, object]:
+    """The body of :func:`e2e_frames` and :func:`e2e_video`: ``open_frames()``
+    starts a new pass over the uint8 BGR frames (a decode, for a video),
+    ``source`` holds the ``_video`` and ``_native_ring`` entries."""
+    from face_detection_recognization_pca_tpu_torch.detect.haar import HaarDetector
+    from face_detection_recognization_pca_tpu_torch.detect.template import (
+        TemplateBank,
+        TemplateDetector,
+    )
+    from face_detection_recognization_pca_tpu_torch.models.eigenfaces import recognize
+    from face_detection_recognization_pca_tpu_torch.ops.color import bgr_to_gray_exact
+    from face_detection_recognization_pca_tpu_torch.ops.resize import resize_bilinear_u8_exact
+
+    rs_wh = None  # (w, h) of resize_to
+    if resize_to is not None:
+        rh, rw = SIZES[resize_to]
+        rs_wh = (rw, rh)
+
+    def resize64(crop: np.ndarray) -> np.ndarray:
+        src = torch.from_numpy(np.ascontiguousarray(crop))
+        return resize_bilinear_u8_exact(src, (64, 64)).numpy().astype(np.float32)
+
+    def grays_of(bgrs: np.ndarray) -> torch.Tensor:
+        return bgr_to_gray_exact(torch.from_numpy(bgrs).to(device))
+
+    # Train stage (the reference's detect -> train): Haar on the first 3
+    # batches in gray, the largest box of each frame cropped (the crop's end
+    # from the unclamped corner, as the JAX function cuts it), resized to
+    # 64 x 64, z-score + PCA.  Timed separately.
+    haar = HaarDetector(device=device)
+    t_train0 = time.perf_counter()
+    train_bgrs = []
+    frames = iter(open_frames())
+    try:
+        for f in frames:
+            if len(train_bgrs) >= 3 * batch:
+                break
+            train_bgrs.append(f)
+    finally:
+        getattr(frames, "close", lambda: None)()
+    train_grays = []
+    if train_bgrs:
+        gray = grays_of(np.stack(train_bgrs))
+        if rs_wh:
+            gray = resize_bilinear_u8_exact(gray, rs_wh)
+        train_grays = list(gray.cpu().numpy())
+    train_crops, train_tpls = [], []
+    for i in range(0, len(train_grays), batch):
+        stack = np.stack(train_grays[i:i + batch]).astype(np.float32)
+        if stack.shape[0] < batch:
+            stack = np.concatenate(
+                [stack, np.zeros((batch - stack.shape[0],) + stack.shape[1:], np.float32)])
+        dets_pb = haar.detect_multi_scale_batch(stack)
+        for j, dets in enumerate(dets_pb[:len(train_grays[i:i + batch])]):
+            if not dets:
+                continue
+            x, y, bw, bh = max(dets, key=lambda d: d[2] * d[3])
+            crop = train_grays[i + j][max(y, 0):y + bh, max(x, 0):x + bw]
+            if crop.size:
+                train_crops.append(resize64(crop))
+                if len(train_tpls) < 8:
+                    train_tpls.append(crop)
+    if len(train_crops) < 4:
+        return {f"{label_prefix}_skipped": f"only {len(train_crops)} training crops"}
+    n = len(train_crops)
+    flat = torch.from_numpy(np.stack(train_crops).reshape(n, -1)).to(device)
+    with exact_float32():
+        model, _ = train_v2(flat, torch.zeros(n, dtype=torch.int32, device=device),
+                            n_components=min(50, n - 1))
+    _synchronize(device)
+    train_wall = time.perf_counter() - t_train0
+    names = {0: "person0"}
+
+    def run_variant(detect_device, detect_finish, label: str) -> Dict[str, object]:
+        t0 = time.perf_counter()
+        n_frames = n_recognized = n_detected = 0
+        pending = None  # (handle, bgr frames, gray frames on the host)
+
+        def finish(pend):
+            nonlocal n_frames, n_recognized, n_detected
+            handle, bgrs, grays = pend
+            dets_pb = detect_finish(handle)
+            n_detected += sum(1 for d in dets_pb[:len(bgrs)] if d)
+            crops = np.zeros((batch, 64, 64), np.float32)
+            picks = []
+            for i, dets in enumerate(dets_pb[:len(bgrs)]):
+                if not dets:
+                    continue
+                x, y, bw, bh = max(dets, key=lambda d: d[2] * d[3])
+                x, y = max(x, 0), max(y, 0)
+                crop = grays[i][y:y + bh, x:x + bw]
+                if crop.size == 0:
+                    continue
+                crops[len(picks)] = resize64(crop)
+                picks.append((i, (x, y, bw, bh)))
+            if picks:
+                with exact_float32():
+                    ids, confs = recognize(model, torch.from_numpy(crops).to(device), 0.7)
+                ids, confs = ids.cpu().numpy(), confs.cpu().numpy()
+                for j, (i, box) in enumerate(picks):
+                    name = names.get(int(ids[j]), "unknown") if ids[j] >= 0 else "unknown"
+                    if name != "unknown":
+                        n_recognized += 1
+                    if annotate is not None:
+                        annotate(bgrs[i], box, name, float(confs[j]))
+            if write is not None:
+                for f in bgrs:
+                    write(label, f)
+            n_frames += len(bgrs)
+
+        def issue(bgrs):
+            # The batch padded to ``batch`` frames, gray on the device; the
+            # host takes its gray frames for the crops before the detector
+            # is queued, so that copy waits for the gray alone.
+            stack = np.zeros((batch,) + bgrs[0].shape, np.uint8)
+            stack[:len(bgrs)] = np.stack(bgrs)
+            gray = grays_of(stack)
+            grays = list(gray[:len(bgrs)].cpu().numpy())
+            return detect_device(gray), grays
+
+        bgrs = []
+        frames = iter(open_frames())
+        try:
+            for frame in frames:
+                if n_frames + len(bgrs) >= max_frames:
+                    break
+                if rs_wh:
+                    chw = torch.from_numpy(np.ascontiguousarray(frame.transpose(2, 0, 1)))
+                    frame = np.ascontiguousarray(
+                        resize_bilinear_u8_exact(chw, rs_wh).numpy().transpose(1, 2, 0))
+                bgrs.append(frame)
+                if len(bgrs) == batch:
+                    handle, grays = issue(bgrs)
+                    if pending is not None:
+                        finish(pending)
+                    pending = (handle, bgrs, grays)
+                    bgrs = []
+        finally:
+            getattr(frames, "close", lambda: None)()
+        if bgrs:  # the last, partial batch
+            handle, grays = issue(bgrs)
+            if pending is not None:
+                finish(pending)
+            pending = (handle, bgrs, grays)
+        if pending is not None:
+            finish(pending)
+        dt = time.perf_counter() - t0
+        p = f"{label_prefix}_{label}"
+        return {
+            f"{p}_fps": n_frames / dt,
+            f"{p}_frames": n_frames,
+            f"{p}_detected": n_detected,
+            f"{p}_recognized": n_recognized,
+            # The reference scanner's exit summary: the share of frames with
+            # a recognized face.
+            f"{p}_recognition_rate": round(n_recognized / max(n_frames, 1), 3),
+            f"{p}_output": None,
+        }
+
+    out: Dict[str, object] = {
+        f"{label_prefix}_{key}": value for key, value in source.items()}
+    out[f"{label_prefix}_train_wall_s"] = train_wall
+    out[f"{label_prefix}_train_crops"] = n
+    if left_out:
+        out[f"{label_prefix}_left_out"] = list(left_out)
+    if "haar" in variants:
+        out.update(run_variant(haar.detect_device, haar.detect_finish, "haar"))
+    if "ncc" not in variants:
+        return out
+
+    # The NCC variant: the video's own training crops as 128 x 128
+    # templates, padded to 8 as the JAX function pads them.
+    while len(train_tpls) < 8:
+        train_tpls.append(train_tpls[len(train_tpls) % max(len(train_tpls), 1)])
+    bank = TemplateBank([("person0", t.astype(np.uint8)) for t in train_tpls[:8]],
+                        canonical_size=(128, 128), device=device)
+    det = TemplateDetector(bank)
+
+    def ncc_finish(handle):
+        scale_meta, packed = handle
+        return [[(d.x, d.y, d.width, d.height) for d in per_frame]
+                for per_frame in det.detect_fused_finish(scale_meta, packed, batch)]
+
+    out.update(run_variant(det.detect_fused_device, ncc_finish, "ncc"))
+    return out
+
+
+def e2e_frames(
+    bgr_frames: Sequence[np.ndarray],
+    batch: int = 16,
+    max_frames: int = 160,
+    resize_to: Optional[str] = None,
+    variants: Sequence[str] = ("haar", "ncc"),
+    label_prefix: str = "e2e",
+    annotate: Optional[Callable] = None,
+    write: Optional[Callable[[str, np.ndarray], None]] = None,
+    device: Optional[torch.device] = None,
+) -> Dict[str, object]:
+    """The end-to-end video loop of ``bench_e2e_video`` on uint8 BGR frames
+    held in memory, with no decoder and no OpenCV: train on the frames' own
+    Haar detections, then per variant (Haar, then the fused NCC template
+    detector) the device half of batch N + 1 issued before the host half
+    of batch N, the largest box of each frame cropped, resized to 64 x 64
+    and recognized at threshold 0.7.  Gray is
+    :func:`..ops.color.bgr_to_gray_exact` on the device and every resize
+    :func:`..ops.resize.resize_bilinear_u8_exact`, both ``cv2``'s bytes.
+
+    ``annotate(frame, box, name, confidence)`` draws on a frame and
+    ``write(variant, frame)`` takes it after its batch; ``None`` leaves that
+    stage out.  The stages left out are listed under ``{prefix}_left_out``
+    (decode always).  ``device=None`` means the CUDA device.  Fewer than
+    4 training crops return ``{prefix}_skipped``."""
+    left_out = ["decode"] + (["annotate"] if annotate is None else []) + (
+        ["encode"] if write is None else [])
+
+    def open_frames():
+        # Each pass gets frames of its own, as a decoder hands them over, so
+        # one variant's drawing never reaches the next.
+        return iter(bgr_frames) if annotate is None else (f.copy() for f in bgr_frames)
+
+    return _e2e(open_frames, batch, max_frames, resize_to, variants, label_prefix,
+                annotate, write, left_out,
+                {"video": f"{len(bgr_frames)} frames in memory", "native_ring": False},
+                resolve_device(device))
+
+
+def e2e_video(
+    video: str,
+    batch: int = 16,
+    max_frames: int = 160,
+    resize_to: Optional[str] = None,
+    variants: Sequence[str] = ("haar", "ncc"),
+    label_prefix: str = "e2e",
+    device: Optional[torch.device] = None,
+) -> Dict[str, object]:
+    """End-to-end video throughput (port of ``bench_e2e_video``): ``video``
+    decoded (by ``io.native.NativeVideoReader`` where its library is built,
+    else ``io.video.VideoReader``) once for training and once per variant,
+    through :func:`e2e_frames`' loop, each frame annotated with
+    ``utils.annotate.draw_guided`` and encoded by ``io.video.VideoWriter``
+    into ``fdrp_{prefix}_{variant}.mp4`` in the temporary directory
+    (``{prefix}_{variant}_output``).  Decode and encode are inside each
+    variant's clock.  ``resize_to`` (a :data:`SIZES` key) resizes every
+    frame on read.  A missing file returns ``{prefix}_skipped``."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from face_detection_recognization_pca_tpu_torch.io import native
+
+    if not os.path.exists(video):
+        return {f"{label_prefix}_skipped": f"{video} not found"}
+    ring = native.available()
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+
+    def open_reader():
+        if ring:
+            return native.NativeVideoReader(video, ring=6)
+        from face_detection_recognization_pca_tpu_torch.io.video import VideoReader
+
+        return VideoReader(video)
+
+    def open_frames():
+        reader = open_reader()
+        try:
+            yield from reader.frames()
+        finally:
+            reader.close()
+
+    reader = open_reader()
+    fps = reader.fps if ring else reader.meta.fps
+    reader.close()
+    paths = {}
+    writers = {}
+
+    def write(label: str, frame: np.ndarray) -> None:
+        from face_detection_recognization_pca_tpu_torch.io.video import VideoWriter
+
+        if label not in writers:
+            paths[label] = os.path.join(tempfile.gettempdir(), f"fdrp_{label_prefix}_{label}.mp4")
+            writers[label] = VideoWriter(paths[label], (frame.shape[1], frame.shape[0]), fps)
+        writers[label].write(frame)
+
+    annotate = None
+    if has_cv2:
+        from face_detection_recognization_pca_tpu_torch.utils.annotate import draw_guided
+
+        annotate = draw_guided
+    try:
+        out = _e2e(open_frames, batch, max_frames, resize_to, variants, label_prefix, annotate,
+                   write if has_cv2 else None, [] if has_cv2 else ["annotate", "encode"],
+                   {"video": os.path.basename(video), "native_ring": ring},
+                   resolve_device(device))
+    finally:
+        for w in writers.values():
+            w.close()
+    for label, path in paths.items():
+        out[f"{label_prefix}_{label}_output"] = path
+    return out

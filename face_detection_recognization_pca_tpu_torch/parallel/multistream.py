@@ -10,13 +10,21 @@ every stream; :meth:`~MultiStreamRecognizer.process_window` runs T
 frames in a Python loop, carrying the origins on the device.
 
 With a ``mesh`` the streams are split into contiguous chunks over the
-``data`` axis, in one process like :mod:`.sharding`: each device holds a
-copy of the model operands and runs its streams, and the results are
-concatenated in stream order on the mesh's first device.  One thing
-crosses the shards: the NCC statistics are centred on the mean of every
-window of the step, so the windows are gathered on the first device and
-that mean is taken there, by the same reduction as without a mesh.  A
-mean per shard would change ``s1`` and ``s2`` and could move an argmax.
+``data`` axis, like :mod:`.sharding`: each device holds a copy of the
+model operands and runs its streams, and the results are concatenated in
+stream order on the process's first device.  One thing crosses the
+shards: the NCC statistics are centred on the mean of every window of
+the step, so the windows are gathered on the first device and that mean
+is taken there, by the same reduction as without a mesh.  A mean per
+shard would change ``s1`` and ``s2`` and could move an argmax.
+
+On a mesh that spans processes (:func:`..distributed.global_mesh`) each
+process tracks the chunks whose entries it owns.  Every window of the
+step is gathered onto each process's first device, chunk by chunk from
+its owner (:func:`.sharding._gather_chunks`), and the mean is taken there
+as in one process; then each chunk's results and next origins are
+gathered the same way, once per frame, so every process reads the whole
+step and the same bits as a one-process mesh of the same shape.
 
 Both entry points compute under :func:`..device.exact_float32`: the
 1e-5 parity with the JAX package and the planted-exact check need full
@@ -42,6 +50,7 @@ from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
     linearize_model,
 )
 from face_detection_recognization_pca_tpu_torch.parallel.mesh import Mesh
+from face_detection_recognization_pca_tpu_torch.parallel.sharding import _gather_chunks
 
 
 @dataclasses.dataclass
@@ -161,15 +170,12 @@ def _track(windows, mean, origin, frame_hw, ops: StepOperands):
 class MultiStreamRecognizer:
     """Stateful vectorized tracker+recognizer over S video streams, on the
     device that holds ``model``'s buffers, or over ``mesh``'s ``data_axis``
-    devices (S must divide by their number).  A mesh that spans processes
-    raises ``ValueError``: its streams' results would lie in several
-    processes, and no one process could read the step's outputs."""
+    devices (S must divide by their number).  On a mesh that spans
+    processes every process passes the whole step's frames and state, and
+    gets the whole step's results."""
 
     def __init__(self, model, template: np.ndarray, window: int = 192,
                  mesh: Optional[Mesh] = None, data_axis: str = "data"):
-        if mesh is not None and mesh.spans_processes:
-            raise ValueError("MultiStreamRecognizer runs in one process; this mesh spans "
-                             f"ranks {sorted(set(mesh.ranks.flat))}")
         tpl = int(template.shape[0])
         if template.shape[0] != template.shape[1]:
             raise ValueError("square templates only")
@@ -179,14 +185,18 @@ class MultiStreamRecognizer:
         self.mesh = mesh
         if mesh is None:
             self.device = model.components.device
-            self._shards = [self.device]
+            self._shards, self._mine = [self.device], [0]
         else:
             self.device = mesh.first_device
             self._shards = mesh.axis_devices(data_axis)
+            self._owners = mesh.axis_owners(data_axis)
+            self._mine = [i for i, owner in enumerate(self._owners) if owner == mesh.rank]
+            if not self._mine:
+                raise ValueError(f"process {mesh.rank} owns no entry along {data_axis!r}")
         lin = linearize_model(model, (tpl, tpl))
         self._ops = {
             device: step_operands(lin, template, self.win, device)
-            for device in dict.fromkeys([self.device, *self._shards])
+            for device in dict.fromkeys([self.device, *(self._shards[i] for i in self._mine)])
         }
         self.labels = self._ops[self.device].lin.labels
 
@@ -222,18 +232,35 @@ class MultiStreamRecognizer:
         n = len(self._shards)
         if frames.shape[0] % n:
             raise ValueError(f"{frames.shape[0]} streams not divisible by data axis {n}")
-        origins = [o.to(d) for o, d in zip(torch.chunk(origin, n), self._shards)]
-        windows = [
-            slice_windows(f.to(d), o, self.win)
-            for f, o, d in zip(torch.chunk(frames, n), origins, self._shards)
-        ]
+        frame_chunks, origin_chunks = torch.chunk(frames, n), torch.chunk(origin, n)
+        origins = {i: origin_chunks[i].to(self._shards[i]) for i in self._mine}
+        windows = {i: slice_windows(frame_chunks[i].to(self._shards[i]), origins[i], self.win)
+                   for i in self._mine}
         # The mean of every window of the step, taken as without a mesh.
-        mean = torch.cat([w.to(self.device) for w in windows]).mean()
-        shards = [
-            _track(w, mean.to(d), o, frame_hw, self._ops[d])
-            for w, o, d in zip(windows, origins, self._shards)
-        ]
-        return tuple(torch.cat([out.to(self.device) for out in outs]) for outs in zip(*shards))
+        local = {i: w.to(self.device) for i, w in windows.items()}
+        if self.mesh.spans_processes:
+            mean = _gather_chunks(local, self._owners).mean()
+        else:
+            mean = torch.cat(list(local.values())).mean()
+        shards = {
+            i: _track(windows[i], mean.to(self._shards[i]), origins[i], frame_hw,
+                      self._ops[self._shards[i]])
+            for i in self._mine
+        }
+        if not self.mesh.spans_processes:
+            return tuple(torch.cat([out.to(self.device) for out in outs])
+                         for outs in zip(*shards.values()))
+        # One gather for the whole step: each chunk's outputs as int32
+        # columns, the float32 scores bit-cast, so every value arrives as
+        # its owner computed it.
+        packed = {}
+        for i, (ids, conf, tm_conf, bx, by, new_origin) in shards.items():
+            scores = torch.stack([conf, tm_conf], 1).view(torch.int32)
+            packed[i] = torch.cat([torch.stack([ids, bx, by], 1), new_origin, scores],
+                                  1).to(self.device)
+        cols = _gather_chunks(packed, self._owners).T.contiguous()
+        conf, tm_conf = cols[5:].view(torch.float32)
+        return cols[0], conf, tm_conf, cols[1], cols[2], cols[3:5].T.contiguous()
 
     def process_batch(self, frames: torch.Tensor, state: MultiStreamState):
         """frames (S, H, W) float32 on the model's device (with a mesh: on

@@ -99,6 +99,9 @@ class ReplayDetector:
     def detect_multi_scale(self, gray, *args, **kwargs):
         return self.detector.detect_multi_scale(np.array(gray), *args, **kwargs)
 
+    def detect_multi_scale_batch(self, grays, *args, **kwargs):
+        return self.detector.detect_multi_scale_batch(np.array(grays), *args, **kwargs)
+
     def detect_device(self, grays, *args, **kwargs):
         return self.detector.detect_device(np.array(grays), *args, **kwargs)
 

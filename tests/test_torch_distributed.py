@@ -63,6 +63,42 @@ _INPUTS = textwrap.dedent(
         labels = (np.arange(45) % 7).astype(np.int32)
         labels[[11, 12, 40]] = -1
         return feats, gallery, labels
+
+
+    TRACK_S, TRACK_H, TRACK_W, TRACK_TPL, TRACK_WIN, TRACK_T = 8, 240, 320, 64, 128, 3
+
+
+    def tracker_inputs():
+        # tests/test_torch_multistream.py's setup: a 64 x 64 face, a model
+        # over 32 jittered copies of it (row 0 the exact face; components an
+        # orthonormal basis made in numpy, so every process has the same
+        # bits), and 3 frames of 8 streams whose noise level rises by 12 per
+        # stream, so a mean per rank would differ from the step's mean.
+        rng = np.random.default_rng(1234)
+        yy, xx = np.mgrid[0:TRACK_TPL, 0:TRACK_TPL].astype(np.float32) / TRACK_TPL
+        face = (120 + 50 * np.sin(6.28 * yy * 1.7) + 35 * np.cos(6.28 * xx * 2.3)).astype(
+            np.float32)
+        images = np.stack([
+            np.roll(face, (int(rng.integers(-2, 3)), int(rng.integers(-2, 3))), (0, 1)).reshape(-1)
+            + rng.normal(0, 2, TRACK_TPL * TRACK_TPL) for _ in range(32)]).astype(np.float32)
+        images[0] = face.reshape(-1)
+        mean = images.mean(0, dtype=np.float64).astype(np.float32)
+        comps = np.linalg.qr(rng.normal(size=(TRACK_TPL * TRACK_TPL, 8)))[0].T.astype(np.float32)
+        params = {
+            "components": comps, "projection_mean": mean, "mean_face": mean,
+            "gallery": ((images - mean).astype(np.float64) @ comps.T.astype(np.float64)).astype(
+                np.float32),
+            "labels": (np.arange(32) % 4).astype(np.int32),
+            "scaler_mean": None, "scaler_scale": None,
+        }
+        frames = rng.normal(100, 20, (TRACK_T, TRACK_S, TRACK_H, TRACK_W)).astype(np.float32)
+        frames += (12.0 * np.arange(TRACK_S, dtype=np.float32))[None, :, None, None]
+        plants = np.array([[(60 + 5 * i + 2 * t, 100 + 7 * i - t) for i in range(TRACK_S)]
+                           for t in range(TRACK_T)], np.int32)
+        for t in range(TRACK_T):
+            for i, (oy, ox) in enumerate(plants[t]):
+                frames[t, i, oy:oy + TRACK_TPL, ox:ox + TRACK_TPL] = face
+        return face, params, frames, plants
     """
 )
 
@@ -143,11 +179,30 @@ _WORKER = textwrap.dedent(
             out["gallery"][str(use_kernel)] = {"ids": got[0].tolist(), "conf": got[1].tolist(),
                                                "one_process": bits_equal(got, ref)}
 
-        try:
-            MultiStreamRecognizer(model, crops[0, :16, :16].numpy(), window=32, mesh=mesh)
-            out["multistream"] = "accepted"
-        except ValueError as e:
-            out["multistream"] = "ValueError: " + str(e)
+        face, params, frames, _ = tracker_inputs()
+        tmodel = tef.from_params(params, (TRACK_TPL, TRACK_TPL), "v1", "cpu")
+        frames = torch.from_numpy(frames)
+        hw = (TRACK_H, TRACK_W)
+        out["tracker"] = {}
+        for name, m in (("mesh", mesh), ("one", one)):
+            msr = MultiStreamRecognizer(tmodel, face, window=TRACK_WIN, mesh=m)
+            state0 = msr.init_state(TRACK_S, hw)
+            batch, batch_state = msr.process_batch(frames[0], state0)
+            window, window_state = msr.process_window(frames, msr.init_state(TRACK_S, hw))
+            out["tracker"][name] = {
+                "init_origin": state0.origin.tolist(),
+                "batch": {k: v.tolist() for k, v in batch.items()},
+                "batch_origin": batch_state.origin.tolist(),
+                "window": {k: v.tolist() for k, v in window.items()},
+                "window_origin": window_state.origin.tolist(),
+                "dtypes": sorted({f"{k} {v.dtype}" for k, v in {**batch, **window}.items()}),
+            }
+            if m is mesh:
+                try:
+                    msr.process_batch(frames[0, : TRACK_S - 1], msr.init_state(TRACK_S - 1, hw))
+                    out["tracker"]["odd"] = "accepted"
+                except ValueError as e:
+                    out["tracker"]["odd"] = "ValueError: " + str(e)
 
         bench.dryrun_multichip(8, n_hosts=2, device="cpu")
         print("RESULT:" + json.dumps(out), flush=True)
@@ -342,10 +397,72 @@ def test_sharded_gallery_match_across_processes(pair, use_kernel):
     assert min(a["conf"][i] for i in (0, 1, 2, 4, 5)) > 0.99 > 0.5 > a["conf"][3]
 
 
-def test_multistream_refuses_a_mesh_across_processes(pair):
+def _tracker(results):
+    """Each rank's tracker results on the (2, 4) mesh across processes and
+    on the one-process (2, 4) mesh, by rank."""
+    return {rank: (r["tracker"]["mesh"], r["tracker"]["one"]) for rank, r in results.items()}
+
+
+def test_tracker_across_processes_process_batch_is_the_one_process_bits(pair):
+    """8 streams over a (2, 4) mesh of two processes: ``init_state`` gives
+    every rank all 8 origins, and ``process_batch`` on each rank returns all
+    8 streams' results, equal as JSON numbers (float32 values exactly) to
+    the one-process (2, 4) mesh's."""
+    _, results = pair
+    for rank, (got, ref) in _tracker(results).items():
+        assert len(got["init_origin"]) == 8 and got["init_origin"] == ref["init_origin"], rank
+        assert got["batch"] == ref["batch"], rank
+        assert got["batch_origin"] == ref["batch_origin"], rank
+        assert len(got["batch"]["x"]) == 8
+        assert got["dtypes"] == ref["dtypes"]
+    assert results[0]["tracker"]["mesh"] == results[1]["tracker"]["mesh"]
+
+
+def test_tracker_across_processes_process_window_and_origins_are_the_one_process_bits(pair):
+    """Three frames through ``process_window``: results and carried origins
+    equal the one-process mesh's on both ranks, and every plant is found."""
+    _, results = pair
+    _, _, _, plants = INPUTS["tracker_inputs"]()
+    for rank, (got, ref) in _tracker(results).items():
+        assert got["window"] == ref["window"], rank
+        assert got["window_origin"] == ref["window_origin"], rank
+        np.testing.assert_array_equal(got["window"]["x"], plants[..., 1])
+        np.testing.assert_array_equal(got["window"]["y"], plants[..., 0])
+        np.testing.assert_array_equal(got["window"]["gallery_row"], np.zeros((3, 8)))
+
+
+def test_tracker_across_processes_matches_the_jax_mesh(pair):
+    """The JAX ``MultiStreamRecognizer`` on ``make_mesh(data=2, model=4)``
+    of fake CPU devices, on the same frames and model: ids, x, y and the
+    origins exactly; confidences within 1e-5 (float32 sums in other
+    orders: the step's mean, the DFT matmuls, the projection)."""
+    from face_detection_recognization_pca_tpu.parallel import multistream as jms
+
+    _, results = pair
+    face, params, frames, _ = INPUTS["tracker_inputs"]()
+    jmodel = jef.EigenfacesModel(
+        **{k: None if v is None else jnp.asarray(v) for k, v in params.items()},
+        face_shape=(64, 64), schema="v1")
+    jmsr = jms.MultiStreamRecognizer(
+        jmodel, face, window=128, mesh=jmesh.make_mesh(data=2, model=4, devices=_devices8()))
+    jbatch, jbatch_state = jmsr.process_batch(jnp.asarray(frames[0]), jmsr.init_state(8, (240, 320)))
+    jwin, jwin_state = jmsr.process_window(jnp.asarray(frames), jmsr.init_state(8, (240, 320)))
+    for got, _ in _tracker(results).values():
+        for mine, theirs, mine_origin, their_origin in (
+                (got["batch"], jbatch, got["batch_origin"], jbatch_state.origin),
+                (got["window"], jwin, got["window_origin"], jwin_state.origin)):
+            for key in ("gallery_row", "person_id", "x", "y"):
+                np.testing.assert_array_equal(mine[key], np.asarray(theirs[key]), err_msg=key)
+            for key in ("confidence", "template_confidence"):
+                np.testing.assert_allclose(mine[key], np.asarray(theirs[key]), rtol=0, atol=1e-5,
+                                           err_msg=key)
+            np.testing.assert_array_equal(mine_origin, np.asarray(their_origin))
+
+
+def test_tracker_across_processes_refuses_streams_not_dividing_the_data_axis(pair):
     _, results = pair
     for r in results.values():
-        assert r["multistream"].startswith("ValueError: MultiStreamRecognizer runs in one process")
+        assert r["tracker"]["odd"] == "ValueError: 7 streams not divisible by data axis 2"
 
 
 def test_dryrun_multichip_across_two_processes(pair):

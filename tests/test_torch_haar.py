@@ -324,3 +324,53 @@ def test_device_none_needs_cuda(cascades):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             thaar.HaarDetector(cascades[1])
+
+
+# ---------------------------------------------------------------------------
+# A larger frame
+# ---------------------------------------------------------------------------
+
+# The raw windows at 544p on which the two packages differ, per frame: the
+# port's own, and the JAX package's own.  The float64 numpy cascade takes
+# the port's and refuses the JAX package's: that package sums its level
+# integrals in float32, whose totals pass 2^24 on a 544 x 960 level.
+RAW_544P_PORT_ONLY = [[(335, 242, 32, 32), (403, 175, 91, 91)], [(615, 410, 32, 32)]]
+RAW_544P_JAX_ONLY = [[], [(729, 243, 35, 35)]]
+
+
+@pytest.mark.slow
+def test_raw_windows_at_544p_follow_the_float64_cascade(cascades, capsys):
+    """Two 544 x 960 frames of ``bench.haar_bgr_frames(2, (544, 960), 21)``:
+    the grouped boxes (minNeighbors 5) equal the JAX detector's; the raw
+    windows (minNeighbors 0) equal, as a set and in order, those the float64
+    numpy cascade accepts on the port's own levels, scaled to the frame as
+    ``detect_finish`` scales them; and the windows where the JAX detector
+    differs are listed."""
+    jc, tc = cascades
+    bgr, _ = bench.haar_bgr_frames(2, (544, 960), 21)
+    gray = bgr[..., 0].astype(np.float32)
+    det = thaar.HaarDetector(tc, device=CPU)
+    jdet = jhaar.HaarDetector(jc)
+    got = {mn: det.detect_multi_scale_batch(gray, 1.1, mn, (30, 30)) for mn in (5, 0)}
+    want = {mn: jdet.detect_multi_scale_batch(gray, 1.1, mn, (30, 30)) for mn in (5, 0)}
+    assert got[5] == want[5] and [len(g) for g in got[5]] == [1, 1]
+
+    levels = thaar._pyramid_levels(544, 960, tc.window_size, 1.1, (30, 30), None)
+    wh, ww = tc.window_size
+    for b in range(2):
+        frame = torch.from_numpy(gray[b:b + 1])
+        boxes = []
+        for factor, sh, sw, step in levels:
+            level = frame if (sh, sw) == (544, 960) else resize_bilinear(frame, (sw, sh))
+            # np.rint rounds half to even, as detect_finish does.
+            for x, y in sorted(numpy_cascade_accepts(level[0].numpy(), tc, step),
+                               key=lambda p: (p[1], p[0])):
+                boxes.append((int(np.rint(x * factor)), int(np.rint(y * factor)),
+                              int(np.rint(ww * factor)), int(np.rint(wh * factor))))
+        assert got[0][b] == boxes, b
+        port_only = [r for r in got[0][b] if r not in want[0][b]]
+        jax_only = [r for r in want[0][b] if r not in got[0][b]]
+        with capsys.disabled():
+            print(f"\nframe {b}: {len(got[0][b])} raw windows in the port, {len(want[0][b])} in "
+                  f"the JAX package; port only {port_only}, JAX only {jax_only}")
+        assert port_only == RAW_544P_PORT_ONLY[b] and jax_only == RAW_544P_JAX_ONLY[b]

@@ -196,3 +196,55 @@ def test_headline_runs_on_the_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tbench.headline(streams=1, size=SIZE, win=WIN, tpl=TPL, t_frames=1)
+
+
+def test_headline_reports_every_window_and_no_card_clock_on_the_cpu():
+    """``window_step_ms`` holds the 3 windows' ms per dispatch, the best of
+    which is ``step_ms``; ``event_step_ms`` is the card's clock, ``None``
+    on the CPU."""
+    detail = _small_headline(with_train=False)["detail"]
+    assert len(detail["window_step_ms"]) == 3 and all(v > 0 for v in detail["window_step_ms"])
+    assert detail["step_ms"] == min(detail["window_step_ms"])
+    assert detail["event_step_ms"] is None
+
+
+G256_SIZE = (300, 320)  # the smallest frames that hold a 256 x 256 window, rounded up
+
+
+def test_headline_geom256_is_planted_exact_at_a_small_size():
+    """Window 256, template 128, 2 streams x 1 frame batch of 300 x 320: the
+    self-check holds and the fps is published."""
+    got = tbench.headline_geom256(streams=2, iters=1, size=G256_SIZE, t_frames=1, device=CPU)
+    assert got["g256_self_check"] == "ok" and got["g256_fps"] > 0
+    assert got["g256_mflops_per_frame"] == pytest.approx(
+        jbench.headline_flops_per_frame(win=256, tpl=128) / 1e6)
+    assert got["g256_tflops_pct"] is None  # a CPU run has no share of the card's peak
+
+
+def test_headline_geom256_maps_the_headline_as_jax_does(monkeypatch):
+    """Both packages' ``geom256`` over the same headline dict (one port run
+    at a small size, handed to each through its headline function): equal
+    outputs; and the port asks its headline for window 256, template 128,
+    no training."""
+    result = tbench.headline(streams=2, size=G256_SIZE, iters=1, warmup=0, win=256, tpl=128,
+                             t_frames=1, with_train=False, device=CPU)
+    result["detail"]["headline_tflops_pct"] = 1.5  # as a card's run carries it
+    calls = []
+
+    def port_headline(**kwargs):
+        calls.append(kwargs)
+        return result
+
+    monkeypatch.setattr(tbench, "headline", port_headline)
+    monkeypatch.setattr(jbench, "bench_headline", lambda **kwargs: result)
+    got = tbench.headline_geom256(streams=5, iters=7, device=CPU)
+    assert got == jbench.bench_headline_geom256(streams=5, iters=7)
+    assert got["g256_tflops_pct"] == 1.5 and got["g256_self_check"] == "ok"
+    assert calls[0]["win"] == 256 and calls[0]["tpl"] == 128 and not calls[0]["with_train"]
+    assert calls[0]["streams"] == 5 and calls[0]["iters"] == 7
+
+
+def test_headline_geom256_runs_on_the_card_unless_told(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tbench.headline_geom256(streams=1, size=G256_SIZE, t_frames=1)

@@ -325,3 +325,48 @@ def test_steps_compute_in_full_float32_and_restore_the_flags(setup, rng, entry):
     assert tdevice.tf32_flags() == before
     for key in want:
         assert torch.equal(got[key], want[key]), key
+
+
+def test_bench_tracker_is_planted_exact_with_the_jax_keys(monkeypatch):
+    """``bench.tracker`` at 2 streams of 480 x 640 and 3 batches on the CPU:
+    both fps published (every plant found, gallery row 0), and the key set
+    of the JAX ``bench_tracker`` at the same size (its size table patched
+    alike; 1 window)."""
+    monkeypatch.setitem(tbench.SIZES, "small", (480, 640))
+    monkeypatch.setitem(jbench.SIZES, "small", (480, 640))
+    got = tbench.tracker(streams=2, size="small", batches=3, loops=1, device=CPU)
+    want = jbench.bench_tracker(streams=2, size="small", batches=3, loops=1)
+    assert set(got) == set(want)
+    assert got["tracker_planted_pos_exact"] and got["tracker_planted_id_exact"]
+    assert got["tracker_window_planted_exact"]
+    assert got["tracker_fps"] > 0 and got["tracker_window_fps"] > 0
+    assert got["tracker_min_conf"] > 0.999 and got["tracker_windows"] == 1
+    for key in ("tracker_streams", "tracker_batches", "tracker_size", "tracker_engine",
+                "tracker_planted_pos_exact", "tracker_planted_id_exact",
+                "tracker_window_planted_exact"):
+        assert got[key] == want[key], key
+
+
+def test_bench_tracker_zeroes_the_fps_when_a_plant_is_missed(monkeypatch):
+    """One plant moved by a pixel after the frames were made: the first pass
+    reports the real face, so the check fails and both fps are 0."""
+    assets = tbench.tracker_assets
+
+    def one_wrong(*args, **kwargs):
+        frames, gallery_images, face, plants = assets(*args, **kwargs)
+        plants = plants.copy()
+        plants[1, 0, 1] += 1
+        return frames, gallery_images, face, plants
+
+    monkeypatch.setitem(tbench.SIZES, "small", (480, 640))
+    monkeypatch.setattr(tbench, "tracker_assets", one_wrong)
+    got = tbench.tracker(streams=2, size="small", batches=3, loops=1, device=CPU)
+    assert not got["tracker_planted_pos_exact"] and got["tracker_planted_id_exact"]
+    assert got["tracker_fps"] == got["tracker_window_fps"] == 0.0
+    assert got["tracker_step_ms"] > 0
+
+
+def test_bench_tracker_runs_on_the_card_unless_told(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tbench.tracker(streams=2, size="544p", batches=1)
