@@ -191,8 +191,11 @@ Phases, each printing a line:
     probes, k 128, 256 rows a shard on (1, 8) and 512 on (2, 4)) against
     its plain version, and on shard 0 both against the cosines in float64
     on the card, the shards' bests combined equal to the step's
-    confidences, ``dp_recognize`` against ``recognize``, and the tracker
-    planted-exact.  Every rank's results must equal the reference of its
+    confidences, ``dp_recognize`` against ``recognize``, the tracker
+    planted-exact, and the fused kernel against plain at the shape each
+    gloo rank gives it (B = 32 crops, D = 9216, k 64, N 256; B = 64 on the
+    NCCL rank is phase 3's), timed beside plain, ``crops @ m`` and the
+    bound (``b32_d9216`` in the JSON line).  Every rank's results must equal the reference of its
     mesh's shape bit for bit, and its kernel launches are counted around
     its main path (``launches_by_path["distributed"]`` for the gallery
     kernel, ``["tracker_distributed"]`` for the fused one, summed over the
@@ -221,8 +224,9 @@ TF32 495, bf16 989 TFLOP/s, ``bench.PEAK_FLOPS``; float32 products count
 as three TF32 products, the 3xTF32 both kernels run).  For the fused kernel ``ms``,
 ``plain_ms`` and ``library_device_ms`` are device-only (CUDA graph)
 times, and ``event_loop_ms``, ``plain_event_loop_ms`` and ``library_ms``
-the event-loop ones; ``b512``, ``d16384`` and ``b768_d16384`` hold the
-same at the headline's, the multi-model scan's and geom256's shapes.
+the event-loop ones; ``b512``, ``d16384``, ``b768_d16384`` and
+``b32_d9216`` hold the same at the headline's, the multi-model scan's,
+geom256's and the gloo tracker ranks' shapes.
 The last line is ``{"ok": true, "device":
 {...}}``.  Any failed check raises,
 so the script exits nonzero without that line, as it does when PyTorch
@@ -298,10 +302,7 @@ from face_detection_recognization_pca_tpu_torch.parallel import (
     snapshot_pca_sharded,
 )
 from face_detection_recognization_pca_tpu_torch.parallel.distributed import GROUP_VARS
-from face_detection_recognization_pca_tpu_torch.parallel.multistream import (
-    MultiStreamRecognizer,
-    slice_windows,
-)
+from face_detection_recognization_pca_tpu_torch.parallel.multistream import slice_windows
 from face_detection_recognization_pca_tpu_torch.parallel.sharding import _gather_chunks
 from face_detection_recognization_pca_tpu_torch.ops.preprocess import preprocess_crops
 from face_detection_recognization_pca_tpu_torch.ops.resize import resize_bilinear
@@ -649,7 +650,8 @@ def phase_kernel_vs_plain(dev) -> dict:
 def phase_slice(dev, card: str) -> int:
     h, w = bench.SIZES["1080p"]
     t0 = time.perf_counter()
-    msr, frames, plants, boxes0 = bench.tracker_recognizer(STREAMS, (h, w), BATCHES, SEED, dev)
+    msr, frames, plants, boxes0, _ = bench.tracker_recognizer(STREAMS, (h, w), BATCHES, SEED,
+                                                              dev)
     torch.cuda.synchronize()
     print(f"[slice] assets + training {time.perf_counter() - t0:.2f} s; frames "
           f"{tuple(frames.shape)} {frames.numel() * 4 / 1e9:.2f} GB on {card}")
@@ -1772,18 +1774,6 @@ def _distributed_calls(mode: str, mesh, inputs: tuple, model, crops) -> dict:
     return calls
 
 
-def _tracker_case(mode: str, dev) -> tuple:
-    """``(frames, face, plants, boxes0)`` of the tracker slice across
-    processes in ``mode``, made again from phase 4's seed wherever it is
-    needed: the frames are noise from a generator on the card."""
-    h, w = bench.SIZES["1080p"]
-    frames, _, face, plants = bench.tracker_assets(STREAMS, (h, w), DIST_TRACKER_BATCHES[mode],
-                                                   SEED, dev)
-    boxes0 = np.stack([plants[0, :, 1], plants[0, :, 0], np.zeros(STREAMS), np.zeros(STREAMS)],
-                      axis=1).astype(np.int32)
-    return frames, face, plants, boxes0
-
-
 def _track_case(msr, frames, boxes0) -> dict:
     """One pass of ``process_batch`` over every frame batch and one
     ``process_window`` of them all, from the first plants: the results and
@@ -1854,11 +1844,12 @@ def distributed_worker(mode: str, tmp: str) -> int:
         ms = {name: _best_time(fn) * 1e3 for name, fn in calls.items()}
 
         # The tracker slice on the same mesh, the model the parent trained.
-        frames, face, plants, boxes0 = _tracker_case(mode, dev)
         tracker_model = from_params(
             {k: None if v is None else v.numpy() for k, v in saved["tracker"].items()},
             (bench.TPL, bench.TPL), "v1", dev)
-        msr = MultiStreamRecognizer(tracker_model, face, window=bench.WIN, mesh=mesh)
+        msr, frames, plants, boxes0, _ = bench.tracker_recognizer(
+            STREAMS, bench.SIZES["1080p"], DIST_TRACKER_BATCHES[mode], SEED, dev, mesh,
+            tracker_model)
         fused_match.launches = 0
         tracked = _track_case(msr, frames, boxes0)
         torch.cuda.synchronize()
@@ -2012,7 +2003,8 @@ def hold_train_step_shards(m, mesh, images, probes, step) -> None:
 
 def phase_distributed(dev, card: str) -> tuple:
     """Phase 16; returns the gallery kernel's launches and the fused
-    kernel's (the tracker), each summed over the ranks' main paths."""
+    kernel's (the tracker), each summed over the ranks' main paths, and
+    the fused kernel held and timed at the gloo ranks' shape."""
     t0 = time.perf_counter()
     inputs = _distributed_inputs(dev, with_gallery=True)
     images, probes = inputs[:2]
@@ -2027,15 +2019,11 @@ def phase_distributed(dev, card: str) -> tuple:
               f"one-process (1, 8) {dt}: every probe named by its planted label")
     # The tracker slice's references: a model trained here (the ranks load
     # it), each mode's frames through a one-process mesh of its shape.
-    h, w = bench.SIZES["1080p"]
-    _, gallery_images, _, _ = bench.tracker_assets(STREAMS, (h, w), 1, SEED, dev)
-    tracker_model, _ = train_v1(gallery_images, n_components=bench.N_COMPONENTS)
-    tracker_model.labels = torch.arange(bench.GALLERY_N, dtype=torch.int32, device=dev) % 4
-    tracker_refs = {}
+    tracker_model, tracker_refs = None, {}
     for mode, shape in DIST_MESHES.items():
-        frames, face, plants, boxes0 = _tracker_case(mode, dev)
-        msr = MultiStreamRecognizer(tracker_model, face, window=bench.WIN,
-                                    mesh=make_mesh(*shape, devices=[dev] * 8))
+        msr, frames, plants, boxes0, tracker_model = bench.tracker_recognizer(
+            STREAMS, bench.SIZES["1080p"], DIST_TRACKER_BATCHES[mode], SEED, dev,
+            make_mesh(*shape, devices=[dev] * 8), tracker_model)
         tracker_refs[mode] = _track_case(msr, frames, boxes0)
         check(bench.planted_exact(tracker_refs[mode]["batch"], plants)
               and bench.planted_exact(tracker_refs[mode]["window"], plants),
@@ -2044,6 +2032,9 @@ def phase_distributed(dev, card: str) -> tuple:
     torch.cuda.synchronize()
     print(f"[distributed] one-process references on (1, 8) and (2, 4) meshes of {dev}, the "
           f"tracker's planted-exact: {time.perf_counter() - t0:.2f} s")
+    # Each gloo rank tracks half the streams: one launch at B = 32 per step.
+    gloo_b = STREAMS // DIST_MESHES["gloo"][0]
+    b32 = hold_fused_at(dev, gloo_b, bench.TPL * bench.TPL, "tracker_distributed")
 
     # The references themselves, on both meshes: the train step against the
     # dense PCA, the gallery kernel on each of the step's shards against its
@@ -2094,7 +2085,7 @@ def phase_distributed(dev, card: str) -> tuple:
                   f"{[outs[r][1]['tracker_launches'] for r in sorted(outs)]}; "
                   f"{time.perf_counter() - t1:.2f} s with the ranks' start")
     print(f"[distributed] phase {time.perf_counter() - t0:.2f} s; {card_and_limit()}")
-    return launches, tracker_launches
+    return launches, tracker_launches, b32
 
 
 def phase_e2e(dev, card: str) -> None:
@@ -2171,13 +2162,14 @@ def main() -> int:
     by_path["cli_bench"] = phase_flow(dev, card)
     torch.cuda.empty_cache()
     gallery_by_path = {"large_gallery": gallery_launches}
-    gallery_by_path["distributed"], by_path["tracker_distributed"] = phase_distributed(dev, card)
+    gallery_by_path["distributed"], by_path["tracker_distributed"], b32 = phase_distributed(
+        dev, card)
     torch.cuda.empty_cache()
     phase_e2e(dev, card)
     print(json.dumps({"kernels": [
         {**KERNELS["fused_match"], "launches": sum(by_path.values()),
          "launches_by_path": by_path, **fused, "d16384": d16384, "b768_d16384": g256,
-         "hmma": hmma["fused_match"]},
+         "b32_d9216": b32, "hmma": hmma["fused_match"]},
         {**KERNELS["gallery_match"], "launches": sum(gallery_by_path.values()),
          "launches_by_path": gallery_by_path, **gallery, "n_1048573": n1m,
          "hmma": hmma["gallery_match"]},

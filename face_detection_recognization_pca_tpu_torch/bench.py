@@ -314,21 +314,24 @@ def tracker_recognizer(
     seed: int,
     device: torch.device,
     mesh=None,
+    model=None,
 ):
-    """``(msr, frames, plants, boxes0)`` for the tracker: the
+    """``(msr, frames, plants, boxes0, model)`` for the tracker: the
     :func:`tracker_assets` frames and plants, a snapshot-PCA model trained
-    on ``device`` on the gallery images with labels ``arange(256) % 4``,
-    the :class:`..parallel.multistream.MultiStreamRecognizer` of it (over
+    on ``device`` on the gallery images with labels ``arange(256) % 4``
+    (or ``model`` when given), the
+    :class:`..parallel.multistream.MultiStreamRecognizer` of it (over
     ``mesh`` when given), and the first plants as (x, y, 0, 0) boxes for
     ``init_state``."""
     frames, gallery_images, face, plants = tracker_assets(streams, size, batches, seed, device)
-    model, _ = train_v1(gallery_images, n_components=N_COMPONENTS)
-    model.labels = torch.arange(GALLERY_N, dtype=torch.int32, device=device) % 4
+    if model is None:
+        model, _ = train_v1(gallery_images, n_components=N_COMPONENTS)
+        model.labels = torch.arange(GALLERY_N, dtype=torch.int32, device=device) % 4
     msr = MultiStreamRecognizer(model, face, window=WIN, mesh=mesh)
     boxes0 = np.stack(
         [plants[0, :, 1], plants[0, :, 0], np.zeros(streams), np.zeros(streams)], axis=1
     ).astype(np.int32)
-    return msr, frames, plants, boxes0
+    return msr, frames, plants, boxes0, model
 
 
 def tracker(
@@ -359,8 +362,8 @@ def tracker(
     of a remote TPU worker; a card has none, so this takes ``loops``."""
     device = resolve_device(device)
     h, w = SIZES[size]
-    msr, frames, plants, boxes0 = tracker_recognizer(streams, (h, w), batches, seed, device,
-                                                     mesh)
+    msr, frames, plants, boxes0, _ = tracker_recognizer(streams, (h, w), batches, seed,
+                                                        device, mesh)
 
     def run_pass():
         state = msr.init_state(streams, (h, w), boxes0)

@@ -237,30 +237,27 @@ class MultiStreamRecognizer:
         windows = {i: slice_windows(frame_chunks[i].to(self._shards[i]), origins[i], self.win)
                    for i in self._mine}
         # The mean of every window of the step, taken as without a mesh.
-        local = {i: w.to(self.device) for i, w in windows.items()}
-        if self.mesh.spans_processes:
-            mean = _gather_chunks(local, self._owners).mean()
-        else:
-            mean = torch.cat(list(local.values())).mean()
-        shards = {
-            i: _track(windows[i], mean.to(self._shards[i]), origins[i], frame_hw,
-                      self._ops[self._shards[i]])
-            for i in self._mine
-        }
-        if not self.mesh.spans_processes:
-            return tuple(torch.cat([out.to(self.device) for out in outs])
-                         for outs in zip(*shards.values()))
-        # One gather for the whole step: each chunk's outputs as int32
-        # columns, the float32 scores bit-cast, so every value arrives as
-        # its owner computed it.
+        mean = self._join({i: w.to(self.device) for i, w in windows.items()}).mean()
+        # Each chunk's outputs as int32 columns, the float32 scores bit-cast,
+        # so every value arrives as its owner computed it.
         packed = {}
-        for i, (ids, conf, tm_conf, bx, by, new_origin) in shards.items():
+        for i in self._mine:
+            ids, conf, tm_conf, bx, by, new_origin = _track(
+                windows[i], mean.to(self._shards[i]), origins[i], frame_hw,
+                self._ops[self._shards[i]])
             scores = torch.stack([conf, tm_conf], 1).view(torch.int32)
             packed[i] = torch.cat([torch.stack([ids, bx, by], 1), new_origin, scores],
                                   1).to(self.device)
-        cols = _gather_chunks(packed, self._owners).T.contiguous()
+        cols = self._join(packed).T.contiguous()
         conf, tm_conf = cols[5:].view(torch.float32)
         return cols[0], conf, tm_conf, cols[1], cols[2], cols[3:5].T.contiguous()
+
+    def _join(self, chunks: Dict[int, torch.Tensor]) -> torch.Tensor:
+        """Every chunk of the step on the first device, in chunk order: this
+        process's own, or on a mesh across processes each from its owner."""
+        if self.mesh.spans_processes:
+            return _gather_chunks(chunks, self._owners)
+        return torch.cat([chunks[i] for i in sorted(chunks)])
 
     def process_batch(self, frames: torch.Tensor, state: MultiStreamState):
         """frames (S, H, W) float32 on the model's device (with a mesh: on
