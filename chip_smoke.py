@@ -10,22 +10,26 @@ Phases, each printing a line:
 2. build: ``csrc/fused_match.cu`` and ``csrc/gallery_match.cu`` (both
    including ``csrc/mma_sync.cuh``) compiled with nvcc for sm_90a, both
    at once, with ptxas's register and spill counts per kernel, and the
-   number of ``HMMA`` (tensor-core) instructions in each kernel of both
-   libraries from ``cuobjdump --dump-sass``: every instantiation of the
-   gallery tile kernel and of the fused-match kernel must have some;
+   tensor-core and TMA instructions in each kernel of both libraries from
+   ``cuobjdump --dump-sass``: ``HMMA`` (``mma.sync``) in every
+   instantiation of the gallery tile kernel and of the fused match's
+   finish, and ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA tile loads) in
+   every instantiation of the fused match's products;
 3. fused kernel against plain: ``fused_match`` against
    ``recognize_linearized`` on the card at the tracker's shapes, a ragged
    masked case, an exact tie, a zero-norm crop, k = 300, B = 130 (three
-   64-crop tiles), k = 7 (rows off 16-byte boundaries, element loads),
-   B = 512 (the headline's batch) and B = 1 (the scan's): ids equal, conf
-   within 1e-5; then two calls and a CUDA graph's replays must give the
-   same bits.  Kernel, plain and ``crops @ m`` (``library_ms``) are timed
+   64-crop tiles), k = 7, B = 512 (the headline's batch) and B = 1 (the
+   scan's): ids equal, conf within 1e-5; the ragged case (D = 4099) loads
+   its crops by element loads and the others by TMA; then two calls and a
+   CUDA graph's replays must give the same bits, at B = 64 and B = 512.
+   Kernel, plain and ``crops @ m`` (``library_ms``) are timed
    in the order plain, kernel, library, library, kernel, plain, by CUDA
    events around 200 Python calls and around replays of a CUDA graph of
    50 calls (the card alone, the ``ms`` of the JSON line), with
    ``torch.profiler``'s kernel sums as a cross-check, beside the card's
    bound for the same work; the same at B = 512 (``b512`` in the JSON
-   line);
+   line); then kernel, plain, ``crops @ m`` and the bound device-only at
+   the five shapes of the main paths (``shapes`` in the JSON line);
 4. the tracker slice: ``bench.tracker_recognizer`` at 1080p with 64
    streams and 8 frame batches (seed 4), a snapshot-PCA model trained on
    the card, then 8 ``process_batch`` steps and one 8-frame
@@ -166,8 +170,10 @@ Phases, each printing a line:
     ``--device``, three times: each must print a JSON line whose
     self-check holds, and launch ``fused_match``
     (``launches_by_path["cli_bench"]``); each reading's windows on the host
-    clock and by CUDA events are printed, and the spread of both over all
-    nine;
+    clock and by CUDA events, its three profiled windows' kernel time and
+    host clock per dispatch, and ``nvidia-smi``'s SM and memory clocks,
+    power draw and temperature before and after it are printed, and the
+    spread of both clocks over all nine windows;
 16. multi-process meshes on ``torch.distributed``: the script starts
     itself again as workers (``--distributed-worker``), which join a group
     through ``parallel.distributed.initialize_multihost`` and build
@@ -216,7 +222,7 @@ Phases, each printing a line:
     variants' frames/s.
 
 The line before the last is a JSON object describing each kernel, with
-its time, its plain version's, ``library_ms``, its HMMA counts, its
+its time, its plain version's, ``library_ms``, its SASS counts, its
 launches by phase (``launches_by_path``; ``launches`` is their sum) and
 ``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and
 its operations over the published dense peak of their type (fp32 67,
@@ -226,7 +232,9 @@ as three TF32 products, the 3xTF32 both kernels run).  For the fused kernel ``ms
 times, and ``event_loop_ms``, ``plain_event_loop_ms`` and ``library_ms``
 the event-loop ones; ``b512``, ``d16384``, ``b768_d16384`` and
 ``b32_d9216`` hold the same at the headline's, the multi-model scan's,
-geom256's and the gloo tracker ranks' shapes.
+geom256's and the gloo tracker ranks' shapes, taken in their phases, and
+``shapes`` all five taken in phase 3; ``fills`` counts the calls whose
+crops came by TMA and by element loads.
 The last line is ``{"ok": true, "device":
 {...}}``.  Any failed check raises,
 so the script exits nonzero without that line, as it does when PyTorch
@@ -282,10 +290,11 @@ from face_detection_recognization_pca_tpu_torch.ops import _build
 from face_detection_recognization_pca_tpu_torch.ops import resize as port_resize
 from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
     LinearizedModel,
-    _fill16,
+    _crops_tma,
     fused_match,
     make_fused_recognizer,
     recognize_linearized,
+    split_m,
 )
 from face_detection_recognization_pca_tpu_torch.ops.gallery_match import (
     _gallery_match_plain,
@@ -334,6 +343,11 @@ NEAR_TIE = 1e-5  # a differing id on random data: plain cosines this close
 STREAMS, BATCHES, SEED = 64, 8, 4
 HEADLINE_STREAMS, HEADLINE_BATCHES = 16, 32
 G256_STREAMS = 24  # bench.headline_geom256's default: 768 windows of 256 x 256 per dispatch
+# (B, D) the main paths give the fused kernel (k 64, N 256): the gloo
+# tracker ranks, the tracker and scan, the multi-model scan, the headline,
+# geom256.
+FUSED_SHAPES = {"b32_d9216": (32, 9216), "b64_d9216": (64, 9216), "b64_d16384": (64, 16384),
+                "b512_d9216": (512, 9216), "b768_d16384": (768, 16384)}
 SCAN_FRAMES, SCAN_BATCH, SCAN_SEED, SCAN_PERSON = 256, 16, 7, "planted_person"
 DETECT_BATCH, DETECT_TEMPLATES, DETECT_SEED = 16, 8, 3
 MULTISCAN_FRAMES, MULTISCAN_BATCH, MULTISCAN_SEED, MULTISCAN_SIDE = 64, 16, 5, 128
@@ -414,6 +428,15 @@ def card_and_limit() -> str:
     ).stdout.strip()
 
 
+def card_clocks() -> str:
+    """The card's SM and memory clocks, power draw and temperature, as
+    ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
 def phase_environment() -> torch.device:
     dev = port_device.require_cuda()
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -433,9 +456,12 @@ def _kernel_label(mangled: str) -> str:
     if m:
         return (f"tiles<{'f32' if m[1] == 'f' else 'bf16'},{'rows' if m[2] == '1' else 'k_n'},"
                 f"{'cp.async' if m[3] == '1' else 'elements'}>")
-    m = re.search(r"fused_match_kernelILb([01])E", mangled)
+    m = re.search(r"fused_match_productsILb([01])ELi(\d+)E", mangled)
     if m:
-        return f"fused<{'cp.async' if m[1] == '1' else 'elements'}>"
+        return f"products<{'tma' if m[1] == '1' else 'elements'},{m[2]}>"
+    m = re.search(r"fused_match_finishILi(\d+)E", mangled)
+    if m:
+        return f"finish<{m[1]}>"
     # _Z<len><name>, or _ZN<len><namespace><len><name> for a kernel in an
     # anonymous namespace.
     m = re.match(r"_ZN(\d+)", mangled)
@@ -457,22 +483,27 @@ def _ptxas_counts(log: str) -> dict:
     return out
 
 
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")  # mma.sync, wgmma, TMA tile loads
+
+
 def _hmma_counts(lib_path) -> tuple:
-    """(command, kernel -> HMMA instructions in its SASS) by cuobjdump."""
+    """(command, kernel -> {op: instructions in its SASS} for SASS_OPS) by
+    cuobjdump."""
     cmd = [_build.cuda_tool("cuobjdump"), "--dump-sass", str(lib_path)]
     sass = subprocess.run(cmd, capture_output=True, text=True, check=True, timeout=300).stdout
     counts, name = {}, None
     for line in sass.splitlines():
         if m := re.search(r"Function : (\S+)", line):
             name = _kernel_label(m[1])
-            counts[name] = 0
-        elif name and "HMMA" in line:
-            counts[name] += 1
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name:
+            for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", line):
+                counts[name][op] += 1
     return cmd, counts
 
 
 def phase_build() -> dict:
-    """kernel name -> {kernel: HMMA count} of each library, checked."""
+    """kernel name -> {kernel: {op: count}} of each library, checked."""
     # One nvcc per source, all started together.
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -486,14 +517,19 @@ def phase_build() -> dict:
         print(f"[build] {name}.cu (both in {seconds:.2f} s); ptxas: {ptxas}")
         cmd, hmma[name] = _hmma_counts(lib)
         cmd[0], cmd[-1] = "cuobjdump", str(lib.relative_to(lib.parents[2]))
-        print(f"[build] {' '.join(cmd)}: HMMA instructions per kernel {json.dumps(hmma[name])}")
+        print(f"[build] {' '.join(cmd)}: {'/'.join(SASS_OPS)} instructions per kernel "
+              f"{json.dumps(hmma[name])}")
     tiles = {k: v for k, v in hmma["gallery_match"].items() if k.startswith("tiles<")}
-    check(len(tiles) == 8 and all(tiles.values()),
+    check(len(tiles) == 8 and all(v["HMMA"] for v in tiles.values()),
           f"every gallery tile kernel runs on the tensor cores: {tiles}")
     fused = hmma["fused_match"]
-    check(len(fused) == 2 and all(fused.values()),
-          f"every fused_match kernel runs on the tensor cores: {fused}")
-    return {"gallery_match": tiles, "fused_match": fused}
+    products = {k: v for k, v in fused.items() if k.startswith("products<")}
+    finish = {k: v for k, v in fused.items() if k.startswith("finish<")}
+    check(len(products) == 4 and all(v["HGMMA"] and v["UTMALDG"] for v in products.values()),
+          f"every fused_match products kernel runs wgmma on TMA-loaded tiles: {products}")
+    check(len(finish) == 2 and all(v["HMMA"] for v in finish.values()),
+          f"every fused_match finish kernel scores on the tensor cores: {finish}")
+    return {"gallery_match": tiles, "fused_match": {**products, **finish}}
 
 
 def _match_case(dev, gen, b, d, k, n, near, masked=0, tie=None, zero_row=None):
@@ -546,14 +582,17 @@ def phase_kernel_vs_plain(dev) -> dict:
         "b512": _match_case(dev, gen, 512, 96 * 96, 64, 256, near=[i % 256 for i in range(512)]),
         "b1": _match_case(dev, gen, 1, 96 * 96, 64, 256, near=[201]),
     }
-    check(not _fill16(*cases["k7"][:2], cases["k7"][3]), "k = 7 takes the element fill")
-    check(_fill16(*cases["slice"][:2], cases["slice"][3]), "the slice takes the cp.async fill")
     max_err = 0.0
     for name, (crops, m, bias, gallery_t, gnorm, mask) in cases.items():
         n = gallery_t.shape[1]
         lin = LinearizedModel(m, bias, gallery_t, gnorm,
                               torch.arange(n, dtype=torch.int32, device=dev), (1, crops.shape[1]))
+        fills = dict(fused_match.fills)
         ids_k, conf_k = fused_match(crops, m, bias, gallery_t, gnorm, mask)
+        path = "tma" if _crops_tma(crops) else "elements"
+        check(fused_match.fills[path] == fills[path] + 1, f"{name}: the {path} path ran")
+        check((path == "elements") == (name == "ragged_masked"),
+              f"{name}: TMA takes every case but the ragged one, {path}")
         ids_p, conf_p = recognize_linearized(lin, crops, mask)
         torch.cuda.synchronize()
         err = float((conf_k - conf_p).abs().max())
@@ -575,33 +614,39 @@ def phase_kernel_vs_plain(dev) -> dict:
           "B = 512 finds every near row")
     check(fused_match(*cases["b1"])[0].tolist() == [201], "B = 1 finds its near row")
 
-    # The split sums run in a fixed order: two calls give the same bits,
-    # and so does a CUDA graph's replay (the counters start from 0 again).
-    crops, m, bias, gallery_t, gnorm, _ = cases["slice"]
-    first, second = fused_match(crops, m, bias, gallery_t, gnorm), fused_match(
-        crops, m, bias, gallery_t, gnorm)
-    check(all(torch.equal(a, b) for a, b in zip(first, second)), "a repeat gives the same bits")
-    graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fused_match(crops, m, bias, gallery_t, gnorm)
-    torch.cuda.current_stream().wait_stream(side)
-    with torch.cuda.graph(graph):
-        replayed = fused_match(crops, m, bias, gallery_t, gnorm)
-    for _ in range(3):
-        graph.replay()
-        torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(first, replayed)),
-              "a CUDA-graph replay equals the eager call")
-    print("[kernel] slice: two calls and three CUDA-graph replays give the same bits")
+    # The D ranges are added in a fixed order and nothing carries over from
+    # one call to the next: two calls give the same bits, and so do a CUDA
+    # graph's replays, at the tracker's B and at the headline's.
+    for name in ("slice", "b512"):
+        crops, m, bias, gallery_t, gnorm, _ = cases[name]
+        first, second = fused_match(crops, m, bias, gallery_t, gnorm), fused_match(
+            crops, m, bias, gallery_t, gnorm)
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"{name}: a repeat gives the same bits")
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fused_match(crops, m, bias, gallery_t, gnorm)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            replayed = fused_match(crops, m, bias, gallery_t, gnorm)
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(first, replayed)),
+                  f"{name}: a CUDA-graph replay equals the eager call")
+        print(f"[kernel] {name}: two calls and three CUDA-graph replays give the same bits")
 
+    # Timed with m's split form made once, as a LinearizedModel carries it.
+    crops, m, bias, gallery_t, gnorm, _ = cases["slice"]
+    split = split_m(m)
     lin = LinearizedModel(m, bias, gallery_t, gnorm,
                           torch.zeros(gallery_t.shape[1], dtype=torch.int32, device=dev),
                           (96, 96))
     fns = {
         "plain": lambda: recognize_linearized(lin, crops),
-        "kernel": lambda: fused_match(crops, m, bias, gallery_t, gnorm),
+        "kernel": lambda: fused_match(crops, m, bias, gallery_t, gnorm, m_split=split),
         # The projection alone, a yardstick the port never calls.
         "library": lambda: crops @ m,
     }
@@ -627,12 +672,13 @@ def phase_kernel_vs_plain(dev) -> dict:
           f"kernel sums {json.dumps(prof)}; bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), "
           f"share {timing['share']:.3f}")
 
-    # The headline's batch: B = 512 in one launch, eight 64-crop tiles.
+    # The headline's batch: B = 512 in one call, four 128-crop tiles.
     crops, m, bias, gallery_t, gnorm, _ = cases["b512"]
+    split = split_m(m)
     lin = LinearizedModel(m, bias, gallery_t, gnorm, lin.labels, (96, 96))
     turns = bench.time_in_turns(
         {"plain": lambda: recognize_linearized(lin, crops),
-         "kernel": lambda: fused_match(crops, m, bias, gallery_t, gnorm),
+         "kernel": lambda: fused_match(crops, m, bias, gallery_t, gnorm, m_split=split),
          "library": lambda: crops @ m},
         ("plain", "kernel", "library", "library", "kernel", "plain"), loop_iters=50,
         graph_calls=20)
@@ -644,7 +690,15 @@ def phase_kernel_vs_plain(dev) -> dict:
             **bnd, "share": bnd["bound_ms"] / mean["device"]["kernel"]}
     print(f"[kernel] headline shape B=512 D={d} k={k} N={n}, mean ms per call: "
           f"{json.dumps(b512)}")
-    return {"max_abs_err": max_err, **timing, "b512": b512}
+
+    # The five shapes of the main paths, each held against plain and timed.
+    shapes = {tag: hold_fused_at(dev, b, d, tag) for tag, (b, d) in FUSED_SHAPES.items()}
+    print(f"[kernel] device-only ms per call at the main paths' shapes (k 64, N 256): "
+          + "; ".join(f"{tag}: kernel {v['ms']:.5f}, plain {v['plain_ms']:.5f}, crops @ m "
+                      f"{v['library_device_ms']:.5f}, bound {v['bound_ms']:.5f} ({v['bound_by']}), "
+                      f"share {v['share']:.3f}" for tag, v in shapes.items())
+          + f"; {card_and_limit()}")
+    return {"max_abs_err": max_err, **timing, "b512": b512, "shapes": shapes}
 
 
 def phase_slice(dev, card: str) -> int:
@@ -990,7 +1044,9 @@ def phase_headline(dev, card: str) -> tuple:
           f"gallery row 0 {detail['planted_id_rate']}) over {detail['frames_per_dispatch']} "
           f"frames per dispatch; step {detail['step_ms']} ms (host clock, best of 3 windows of "
           f"20 dispatches: {detail['window_step_ms']} ms; CUDA events around the same windows: "
-          f"{detail['event_step_ms']} ms); device {detail['device_ms']} ms in "
+          f"{detail['event_step_ms']} ms; 3 more windows under torch.profiler: kernels "
+          f"{detail['window_device_ms']} ms, host clock {detail['window_traced_ms']} ms per "
+          f"dispatch); device {detail['device_ms']} ms in "
           f"{detail['kernel_launches']} kernels per dispatch (torch.profiler), busy share "
           f"{detail['busy_share']}; {detail['headline_tflops']} TFLOP/s by the closed form of "
           f"{detail['headline_mflops_per_frame']} MFLOP per frame, "
@@ -1039,7 +1095,8 @@ def hold_fused_at(dev, b: int, d: int, tag: str) -> dict:
                                                       near=[i % 256 for i in range(b)])
     lin = LinearizedModel(m, bias, gallery_t, gnorm,
                           torch.zeros(256, dtype=torch.int32, device=dev), (1, d))
-    ids_k, conf_k = fused_match(crops, m, bias, gallery_t, gnorm)
+    split = split_m(m)
+    ids_k, conf_k = fused_match(crops, m, bias, gallery_t, gnorm, m_split=split)
     ids_p, conf_p = recognize_linearized(lin, crops)
     torch.cuda.synchronize()
     err = float((conf_k - conf_p).abs().max())
@@ -1048,7 +1105,7 @@ def hold_fused_at(dev, b: int, d: int, tag: str) -> dict:
     check(err <= CONF_ATOL, f"{tag}: conf error {err} > {CONF_ATOL}")
     turns = bench.time_in_turns(
         {"plain": lambda: recognize_linearized(lin, crops),
-         "kernel": lambda: fused_match(crops, m, bias, gallery_t, gnorm),
+         "kernel": lambda: fused_match(crops, m, bias, gallery_t, gnorm, m_split=split),
          "library": lambda: crops @ m},
         ("plain", "kernel", "library", "library", "kernel", "plain"), loop_iters=50,
         graph_calls=20)
@@ -1267,7 +1324,8 @@ def phase_multiscan(dev, card: str) -> tuple:
     flat = grays.reshape(len(grays), -1).contiguous()
     turns = bench.time_in_turns(
         {"plain": lambda: recognize_linearized(lin, grays),
-         "kernel": lambda: fused_match(flat, lin.m, lin.bias, lin.gallery_t, lin.gallery_norm),
+         "kernel": lambda: fused_match(flat, lin.m, lin.bias, lin.gallery_t, lin.gallery_norm,
+                                       m_split=lin.m_split),
          "library": lambda: flat @ lin.m},
         ("plain", "kernel", "library", "library", "kernel", "plain"), loop_iters=50,
         graph_calls=20)
@@ -1709,22 +1767,28 @@ def phase_flow(dev, card: str) -> int:
     readings = []
     t2 = time.perf_counter()
     for _ in range(CLI_BENCH_READINGS):
+        smi = {"before": card_clocks()}
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["bench", "--streams", "4", "--size", "1080p"])
+        smi["after"] = card_clocks()
         line = json.loads(buf.getvalue().strip().splitlines()[-1])
         detail = line["detail"]
         check(rc == 0 and detail["self_check"] == "ok" and line["value"] > 0,
               f"cli bench self-check: {detail['self_check']}")
         check(detail["device"] == card, f"cli bench ran on {detail['device']}")
-        check(len(detail["window_step_ms"]) == len(detail["event_step_ms"]) == 3,
-              "cli bench reports every window on both clocks")
+        check(len(detail["window_step_ms"]) == len(detail["event_step_ms"]) == 3
+              and len(detail["window_device_ms"]) == 3,
+              "cli bench reports every window on both clocks and its profiled windows' kernels")
         readings.append(line)
         print(f"[pipeline] cli.main(['bench', '--streams', '4', '--size', '1080p']) reading "
               f"{len(readings)}: {line['value']} {line['unit']}, self-check {detail['self_check']}, "
               f"{detail['frames_per_dispatch']} frames per dispatch, step {detail['step_ms']} ms; "
               f"windows (ms per dispatch) host clock {detail['window_step_ms']}, CUDA events "
-              f"{detail['event_step_ms']}; device {detail['device_ms']} ms, busy share "
+              f"{detail['event_step_ms']}; profiled windows kernels {detail['window_device_ms']}, "
+              f"host clock {detail['window_traced_ms']}; nvidia-smi clocks.sm, clocks.mem, "
+              f"power.draw, temperature.gpu before {smi['before']}, after {smi['after']}; "
+              f"device {detail['device_ms']} ms, busy share "
               f"{detail['busy_share']}")
     bench_s = time.perf_counter() - t2
     launches = fused_match.launches
@@ -2138,7 +2202,7 @@ def main() -> int:
         return distributed_worker(*sys.argv[2:4])
     dev = phase_environment()
     card = torch.cuda.get_device_name(0)
-    hmma = phase_build()
+    sass = phase_build()
     fused = phase_kernel_vs_plain(dev)
     fused_launches = phase_slice(dev, card)
     torch.cuda.empty_cache()
@@ -2169,10 +2233,10 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {**KERNELS["fused_match"], "launches": sum(by_path.values()),
          "launches_by_path": by_path, **fused, "d16384": d16384, "b768_d16384": g256,
-         "b32_d9216": b32, "hmma": hmma["fused_match"]},
+         "b32_d9216": b32, "sass": sass["fused_match"], "fills": fused_match.fills},
         {**KERNELS["gallery_match"], "launches": sum(gallery_by_path.values()),
          "launches_by_path": gallery_by_path, **gallery, "n_1048573": n1m,
-         "hmma": hmma["gallery_match"]},
+         "sass": sass["gallery_match"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

@@ -543,6 +543,27 @@ def kernel_families(rows: Sequence[Tuple[str, float, float]]) -> Dict[str, float
     return out
 
 
+def _traced_windows(fn: Callable[[], object], iters: int, windows: int = 3) -> tuple:
+    """``windows`` windows of ``iters`` calls of ``fn``, each in its own
+    ``torch.profiler`` trace: (kernel ms per call, host-clock ms per call)
+    of each window; the kernel ms is None when a trace holds no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    device_ms, host_ms = [], []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) / iters * 1e3)
+        rows = device_kernels(prof)
+        device_ms.append(sum(us for _, us, _ in rows) / 1e3 / iters if rows else None)
+    return device_ms, host_ms
+
+
 def profiler_ms(fn: Callable[[], object], calls: int = 50) -> Union[float, None]:
     """Kernel time per call of ``fn`` summed by ``torch.profiler`` over
     ``calls`` eager calls, or None when the trace holds no device time."""
@@ -706,7 +727,12 @@ def headline(
     dispatches, best of 3 such windows after ``warmup`` dispatches;
     ``window_step_ms`` holds every window's ms per dispatch, and on a CUDA
     device ``event_step_ms`` the same windows by CUDA events (``None``
-    elsewhere), so a slow window shows which clock saw it.  The fps
+    elsewhere), so a slow window shows which clock saw it.  Then, on a CUDA
+    device, 3 more windows of ``iters`` dispatches each run under
+    ``torch.profiler`` (the timed windows stay unprofiled):
+    ``window_device_ms`` is each one's kernel time per dispatch and
+    ``window_traced_ms`` its host clock per dispatch, so a slow window
+    shows whether the card worked longer or waited (``None`` elsewhere).  The fps
     is published only if the step recognized what was planted: every
     reported position equals the planted one and every gallery row is 0,
     over all frames; otherwise ``value`` is 0.  On a CUDA device
@@ -751,6 +777,10 @@ def headline(
     n_frames = t_frames * streams
     fps = n_frames / dt
 
+    window_device_ms = window_traced_ms = None
+    if device.type == "cuda":
+        window_device_ms, window_traced_ms = _traced_windows(dispatch, iters)
+
     offset_exact, id_rate = headline_self_check(out, offs, win_y, win_x)
     ok = offset_exact == 1.0 and id_rate == 1.0
     conf, tm_conf = out[1], out[2]
@@ -789,6 +819,8 @@ def headline(
             "step_ms": dt * 1e3,
             "window_step_ms": window_step,
             "event_step_ms": event_step,
+            "window_device_ms": window_device_ms,
+            "window_traced_ms": window_traced_ms,
             "device_ms": device_ms,
             "kernel_launches": kernel_launches,
             "busy_share": busy_share,

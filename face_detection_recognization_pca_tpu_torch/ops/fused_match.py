@@ -7,20 +7,24 @@ them once per (model, crop shape) into ``feats = crop_flat @ M + bias``
 
 :func:`fused_match` then runs ``crops_flat @ M + bias``, the L2 norm,
 the gallery cosine, an optional additive mask and the first-occurrence
-argmax as one CUDA kernel launch (``csrc/fused_match.cu``, the port of
-the Pallas ``_match_kernel``, on the tensor cores as 3xTF32).
+argmax in ``csrc/fused_match.cu``, the port of the Pallas
+``_match_kernel``: one launch of its products (TMA loads, ``wgmma`` as
+3xTF32) and of its finish, which starts as a programmatic dependent
+launch.
 :func:`recognize_linearized` is the same math in plain PyTorch:
 :func:`fused_match` uses it for tensors on the CPU, and tests compare the
-kernel with it on the card.
+kernel with it on the card.  The kernel reads m as :func:`split_m`
+prepares it, transposed and split into TF32 halves; a
+:class:`LinearizedModel` carries that form, made once per model.
 
-**Scratch and streams.**  The kernel's clusters of blocks write partial
-products to a scratch buffer, and the last cluster of each 64-crop tile
-(found by a counter that the kernel returns to 0) finishes the tile.  The wrapper
-keeps one scratch buffer and one set of counters per (device, stream)
-and reuses them on every call on that stream, so calls on one stream,
-which run in order, share them safely; calls on two streams at once
+**Scratch and streams.**  The products' blocks each write the partial
+product of one B tile over one range of D to a scratch buffer, and the
+finish adds every crop's partials in ascending D order.  The wrapper
+keeps one scratch buffer per (device, stream)
+and reuses it on every call on that stream, so calls on one stream,
+which run in order, share it safely; calls on two streams at once
 each have their own.  A call captured in a CUDA graph uses its stream's
-buffers on every replay, and they are never freed, so a later call with
+buffer on every replay, and it is never freed, so a later call with
 larger shapes cannot take that memory away.
 """
 
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -36,16 +41,50 @@ import torch
 from face_detection_recognization_pca_tpu_torch.ops import _build
 from face_detection_recognization_pca_tpu_torch.ops.resize import _interp_matrix
 
-# The kernel's blocking (csrc/fused_match.cu): rows of D per block,
-# crops and features per block, and blocks per cluster.  96 gives 96
-# blocks in 12 clusters at the tracker's D = 9216, all resident at once
-# (64 makes 18 clusters, which take two waves; scripts_torch/fused_sweep.py).
-_D_SPLIT = 96
-_TILE_B, _TILE_K, _CLUSTER = 64, 64, 8
-# (device index, stream) -> (partial scratch, counters); see the docstring.
-_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
-# Workspaces that a CUDA graph captured, kept alive for its replays.
-_CAPTURED: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+# The kernels' blocking (csrc/fused_match.cu): D floats per staged chunk
+# and features per block; B tiles of 64 crops up to _SMALL_B crops (and 4
+# crops per finishing block), else of 128 (and 8); the D chunks cut into at
+# most _MAX_SPLITS ranges per B tile and k chunk, as many as make about one
+# block per SM.  The finish reads every range's partial, so more ranges
+# shorten the products and lengthen the sums
+# (scripts_torch/fused_sweep.py --variants).
+_CHUNK, _TILE_K = 32, 64
+_SMALL_B = 64
+_FINISH_ROWS = (4, 8)
+_MAX_SPLITS = 64
+# (device index, stream) -> partial scratch; see the docstring.
+_WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
+# Scratch that a CUDA graph captured, kept alive for its replays.
+_CAPTURED: Dict[int, torch.Tensor] = {}
+
+
+class SplitM(NamedTuple):
+    """m as the kernel reads it: ``(k, Dp)``, its transpose zero-padded to
+    ``Dp = D`` rounded up to 4, split into TF32 halves ``hi + lo``."""
+
+    hi: torch.Tensor
+    lo: torch.Tensor
+
+
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 to TF32 (10 explicit mantissa bits), rounded to nearest with
+    ties away from zero as ``cvt.rna.tf32.f32`` rounds, the 13 low bits
+    zero: ``rna_tf32`` of ``csrc/mma_sync.cuh``, on the bits."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
+
+
+def split_m(m: torch.Tensor) -> SplitM:
+    """The (k, Dp) hi and lo halves of float32 ``m`` (D, k) that the kernel
+    streams: hi = rna_tf32(m.T), lo = rna_tf32(m.T - hi), zero past D.
+    Made once per model: at B 64 and D 9216 m is as many bytes as the
+    crops, so preparing it per call would cost about the kernel's bound."""
+    d, k = m.shape
+    mt = torch.zeros((k, -(-d // 4) * 4), dtype=torch.float32, device=m.device)
+    mt[:, :d] = m.T
+    hi = _rna_tf32(mt)
+    return SplitM(hi, _rna_tf32(mt - hi))
 
 
 class LinearizedModel(NamedTuple):
@@ -57,6 +96,13 @@ class LinearizedModel(NamedTuple):
     gallery_norm: torch.Tensor  # (N,)
     labels: torch.Tensor  # (N,) int32
     crop_shape: Tuple[int, int]
+    m_split: Optional[SplitM] = None  # split_m(m), the kernel's form of m
+
+    def to(self, device: torch.device) -> "LinearizedModel":
+        """The same model with its tensors on ``device`` and m's split form
+        made there."""
+        moved = [t.to(device) for t in self[:5]]
+        return LinearizedModel(*moved, self.crop_shape, split_m(moved[0]))
 
 
 def _host(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
@@ -99,13 +145,15 @@ def linearize_model(model, crop_shape: Tuple[int, int]) -> LinearizedModel:
         # transposes may hand back other layouts.
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
+    m_dev = dev(m)
     return LinearizedModel(
-        m=dev(m),
+        m=m_dev,
         bias=dev(bias),
         gallery_t=dev(gallery.T),
         gallery_norm=dev(np.linalg.norm(gallery, axis=1)),
         labels=dev(_host(model.labels), np.int32),
         crop_shape=(ch, cw),
+        m_split=split_m(m_dev),
     )
 
 
@@ -132,11 +180,13 @@ def recognize_linearized(
     return _match_plain(flat, lin.m, lin.bias, lin.gallery_t, lin.gallery_norm, mask)
 
 
-def _check_args(crops_flat, m, bias, gallery_t, gnorm, mask):
+def _check_args(crops_flat, m, bias, gallery_t, gnorm, mask, m_split):
     named = {"crops_flat": crops_flat, "m": m, "bias": bias, "gallery_t": gallery_t,
              "gnorm": gnorm}
     if mask is not None:
         named["mask"] = mask
+    if m_split is not None:
+        named["m_split.hi"], named["m_split.lo"] = m_split
     for name, t in named.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
@@ -152,7 +202,9 @@ def _check_args(crops_flat, m, bias, gallery_t, gnorm, mask):
     k, n = gallery_t.shape
     if b < 1 or d < 1 or k < 1 or n < 1:
         raise ValueError(f"empty operand: B={b}, D={d}, k={k}, N={n}")
-    want = {"m": (d, k), "bias": (k,), "gnorm": (n,), "mask": (n,)}
+    split = (k, -(-d // 4) * 4)
+    want = {"m": (d, k), "bias": (k,), "gnorm": (n,), "mask": (n,), "m_split.hi": split,
+            "m_split.lo": split}
     for name, shape in want.items():
         if name in named and tuple(named[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(named[name].shape)}, expected {shape}")
@@ -162,12 +214,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument and result types of a library built from
     ``csrc/fused_match.cu``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_match_launch.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+    lib.fused_match_launch.argtypes = [ptr] * 10 + [i32] * 10 + [ptr]
     lib.fused_match_launch.restype = i32
-    lib.fused_match_counters.argtypes = [i32]
-    lib.fused_match_counters.restype = i32
-    lib.fused_match_scratch_floats.argtypes = [i32] * 4
-    lib.fused_match_scratch_floats.restype = ctypes.c_longlong
+    lib.fused_match_partial_floats.argtypes = [i32] * 4
+    lib.fused_match_partial_floats.restype = ctypes.c_longlong
     lib.fused_match_error_string.argtypes = [i32]
     lib.fused_match_error_string.restype = ctypes.c_char_p
     return lib
@@ -178,40 +228,62 @@ def _lib() -> ctypes.CDLL:
     return _declare(_build.load("fused_match"))
 
 
-def _fill16(crops_flat: torch.Tensor, m: torch.Tensor, gallery_t: torch.Tensor) -> bool:
-    """Whether the kernel may stage its tiles by 16-byte ``cp.async``: each
-    of the three streamed operands starts on a 16-byte boundary and its
-    rows (D, k and N float32) are whole numbers of 16 bytes (the scratch,
-    which the kernel also streams, is a fresh allocation).  Otherwise the
-    kernel fills the same tiles by element loads."""
-    return all(t.data_ptr() % 16 == 0 and t.shape[1] % 4 == 0 for t in (crops_flat, m, gallery_t))
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _grid(b: int, d: int, k: int) -> Tuple[int, int, int]:
-    """The kernel's grid: (D splits rounded up to whole clusters, k chunks,
-    B tiles); there is one counter per B tile."""
-    splits = -(-d // _D_SPLIT)
-    return -(-splits // _CLUSTER) * _CLUSTER, -(-k // _TILE_K), -(-b // _TILE_B)
+def _crops_tma(crops_flat: torch.Tensor) -> bool:
+    """Whether TMA may load the crops: they start on a 16-byte boundary and
+    their rows (D float32) are whole numbers of 16 bytes.  Otherwise the
+    kernel's producer warp loads them element by element into the same
+    layout.  m's split form is always laid out for TMA."""
+    return crops_flat.data_ptr() % 16 == 0 and crops_flat.shape[1] % 4 == 0
 
 
-def _scratch_shape(b: int, d: int, k: int) -> Tuple[int, int, int]:
-    """The kernel's partial scratch: (clusters, B, k) float32."""
-    return _grid(b, d, k)[0] // _CLUSTER, b, k
+class Grid(NamedTuple):
+    """The kernels' launch: D ranges per (B tile, k chunk) and the chunks
+    of 32 floats in each, k chunks of 64, B tiles of ``tile_b`` crops; the
+    finish's crops per block."""
+
+    splits: int
+    k_chunks: int
+    tiles: int
+    tile_b: int
+    chunks_per_split: int
+    finish_rows: int
 
 
-def _workspace(device: torch.device, stream: int, floats: int, counters: int):
-    """This stream's scratch of at least ``floats`` float32 and
-    ``counters`` zeroed int32 counters, grown (never shrunk) on demand."""
+def _grid(b: int, d: int, k: int, sms: int = 132) -> Grid:
+    """About one block per SM: the D chunks cut into as many equal ranges
+    as the B tiles and k chunks leave room for, at most _MAX_SPLITS, none
+    empty."""
+    tile_b = 64 if b <= _SMALL_B else 128
+    tiles, k_chunks, chunks = -(-b // tile_b), -(-k // _TILE_K), -(-d // _CHUNK)
+    want = max(1, min(_MAX_SPLITS, chunks, round(sms / (tiles * k_chunks))))
+    per = -(-chunks // want)
+    return Grid(-(-chunks // per), k_chunks, tiles, tile_b, per,
+                _FINISH_ROWS[0] if b <= _SMALL_B else _FINISH_ROWS[1])
+
+
+def _scratch_shape(b: int, d: int, k: int, sms: int = 132) -> Tuple[int, int, int, int, int]:
+    """The kernel's float32 scratch of partials: (tiles, k chunks, splits,
+    tile_b, 64)."""
+    grid = _grid(b, d, k, sms)
+    return grid.tiles, grid.k_chunks, grid.splits, grid.tile_b, _TILE_K
+
+
+def _workspace(device: torch.device, stream: int, floats: int) -> torch.Tensor:
+    """This stream's scratch of at least ``floats`` float32, grown (never
+    shrunk) on demand."""
     key = (device.index, stream)
-    partial, count = _WORKSPACE.get(key, (None, None))
+    partial = _WORKSPACE.get(key)
     if partial is None or partial.numel() < floats:
         partial = torch.empty(floats, dtype=torch.float32, device=device)
-    if count is None or count.numel() < counters:
-        count = torch.zeros(counters, dtype=torch.int32, device=device)
-    _WORKSPACE[key] = partial, count
+    _WORKSPACE[key] = partial
     if torch.cuda.is_current_stream_capturing():
-        _CAPTURED[id(partial), id(count)] = partial, count
-    return partial, count
+        _CAPTURED[id(partial)] = partial
+    return partial
 
 
 def fused_match(
@@ -221,6 +293,7 @@ def fused_match(
     gallery_t: torch.Tensor,  # (k, N)
     gnorm: torch.Tensor,  # (N,)
     mask: Optional[torch.Tensor] = None,  # (N,) additive, 0 = valid
+    m_split: Optional[SplitM] = None,  # split_m(m), made once per model
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Projection -> cosine -> first-occurrence argmax: ``(ids int32 (B,),
     conf float32 (B,))``.
@@ -228,10 +301,13 @@ def fused_match(
     Every operand is float32, contiguous and on one device.  On a CUDA
     device this launches ``csrc/fused_match.cu`` once on the current
     stream (building it at first use) and raises if the build or the
-    launch fails; on the CPU it computes the same thing in plain PyTorch.
-    ``fused_match.launches`` counts kernel launches.
+    launch fails; it reads m through ``m_split``, made here when not given.
+    On the CPU it computes the same thing in plain PyTorch.
+    ``fused_match.launches`` counts kernel launches, and
+    ``fused_match.fills`` those that loaded the crops by TMA (``"tma"``)
+    or by element loads (``"elements"``).
     """
-    _check_args(crops_flat, m, bias, gallery_t, gnorm, mask)
+    _check_args(crops_flat, m, bias, gallery_t, gnorm, mask, m_split)
     device = crops_flat.device
     if device.type == "cpu":
         return _match_plain(crops_flat, m, bias, gallery_t, gnorm, mask)
@@ -242,27 +318,32 @@ def fused_match(
     b, d = crops_flat.shape
     k, n = gallery_t.shape
     with torch.cuda.device(device):
+        if m_split is None:
+            m_split = split_m(m)
         stream = torch.cuda.current_stream(device).cuda_stream
-        clusters, _, _ = _scratch_shape(b, d, k)
-        partial, counters = _workspace(device, stream, clusters * b * k, _grid(b, d, k)[2])
+        grid = _grid(b, d, k, _sm_count(device.index))
+        partial = _workspace(device, stream, math.prod(_scratch_shape(b, d, k,
+                                                                      _sm_count(device.index))))
         out = torch.empty((2 * b,), dtype=torch.int32, device=device)
         ids, conf = out[:b], out[b:].view(torch.float32)
+        tma = _crops_tma(crops_flat)
         err = lib.fused_match_launch(
-            crops_flat.data_ptr(), m.data_ptr(), bias.data_ptr(),
-            gallery_t.data_ptr(), gnorm.data_ptr(),
-            None if mask is None else mask.data_ptr(),
-            partial.data_ptr(), counters.data_ptr(), ids.data_ptr(), conf.data_ptr(),
-            b, d, k, n, _D_SPLIT, int(_fill16(crops_flat, m, gallery_t)), stream,
+            crops_flat.data_ptr(), m_split.hi.data_ptr(), m_split.lo.data_ptr(), bias.data_ptr(),
+            gallery_t.data_ptr(), gnorm.data_ptr(), None if mask is None else mask.data_ptr(),
+            partial.data_ptr(), ids.data_ptr(), conf.data_ptr(), b, d, k, n, m_split.hi.shape[1],
+            grid.tile_b, grid.splits, grid.chunks_per_split, grid.finish_rows, int(tma), stream,
         )
     if err != 0:
         raise RuntimeError(
             f"fused_match launch failed: {lib.fused_match_error_string(err).decode()}"
         )
     fused_match.launches += 1
+    fused_match.fills["tma" if tma else "elements"] += 1
     return ids, conf
 
 
 fused_match.launches = 0
+fused_match.fills = {"tma": 0, "elements": 0}
 
 
 def make_fused_recognizer(model, crop_shape: Tuple[int, int]):
@@ -278,6 +359,7 @@ def make_fused_recognizer(model, crop_shape: Tuple[int, int]):
 
     def fn(crops: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         flat = crops.reshape(crops.shape[0], -1).to(torch.float32).contiguous()
-        return fused_match(flat, lin.m, lin.bias, lin.gallery_t, lin.gallery_norm)
+        return fused_match(flat, lin.m, lin.bias, lin.gallery_t, lin.gallery_norm,
+                           m_split=lin.m_split)
 
     return fn, lin

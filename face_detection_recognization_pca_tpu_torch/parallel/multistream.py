@@ -90,7 +90,7 @@ def step_operands(lin: LinearizedModel, template: np.ndarray, win: int,
         band=torch.from_numpy(band).to(device),
         t_energy=torch.tensor(np.sum(t0 * t0, dtype=np.float64).astype(np.float32),
                               device=device),
-        lin=LinearizedModel(*(t.to(device) for t in lin[:5]), lin.crop_shape),
+        lin=lin.to(device),
     )
 
 
@@ -148,7 +148,8 @@ def locate_and_match(windows: torch.Tensor, mean: torch.Tensor, ops: StepOperand
     crops = windows[streams, crop_rows, crop_cols]  # (S, tpl, tpl)
     lin = ops.lin
     ids, conf = fused_match(
-        crops.reshape(s, -1), lin.m, lin.bias, lin.gallery_t, lin.gallery_norm
+        crops.reshape(s, -1), lin.m, lin.bias, lin.gallery_t, lin.gallery_norm,
+        m_split=lin.m_split,
     )
     return ids, conf, tm_conf, ly, lx
 

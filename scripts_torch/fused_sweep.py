@@ -3,28 +3,32 @@
 
     python3 scripts_torch/fused_sweep.py [--variants] [--phases] [--profile]
 
-With no option it times ``fused_match`` at the tracker's shape (B 64,
-D 9216, k 64, N 256, the data of ``chip_smoke.py`` phase 3) beside its
-plain version and ``crops @ m``, taken in the order plain, kernel,
-library, library, kernel, plain: CUDA events around 200 Python calls
-(host and card), then around replays of a CUDA graph of 50 calls (the
-card alone), then ``torch.profiler``'s kernel sum over 50 eager calls.
+With no option it times ``fused_match`` at the five shapes of the main
+paths (``chip_smoke.FUSED_SHAPES``: B 32, 64 and 512 at D 9216, B 64 at D
+16384, B 768 at D 16384; k 64, N 256, the data of ``chip_smoke.py``'s
+``_match_case``)
+beside its plain version and ``crops @ m``, taken in the order plain,
+kernel, library, library, kernel, plain, device-only (CUDA events around
+replays of a CUDA graph of 20 calls), with the bound and the kernel's
+share of it.
 
-``--variants`` builds copies of ``csrc/fused_match.cu`` that differ in
-the constants or parts that ``VARIANTS`` names (one nvcc per copy, all
-started together, into ``build/sweep_fused/``), prints each copy's
-registers and spills, checks the complete ones against the plain
-version, and times every copy device-only at each D split of
-``D_SPLITS``, the copies taken in order and then in reverse order.  It
-also times a CUDA graph of one-element ``add_`` calls: what one more
-kernel launch costs the card inside a graph.
+``--variants`` times the kernel device-only at each shape under other
+launch plans (``PLANS``: the wrapper's ``_MAX_SPLITS``, ``_SMALL_B`` and ``_FINISH_ROWS``;
+no rebuild), and copies of ``csrc/fused_match.cu`` without parts of the
+work (``VARIANTS``, one nvcc per copy, all started together, into
+``build/sweep_fused/``; their answers are wrong and only their times mean
+anything), the copies taken in order and then in reverse order.  It also
+times a CUDA graph of one-element ``add_`` calls: what one more kernel
+launch costs the card inside a graph.
 
-``--phases`` builds a copy of ``csrc/fused_match.cu`` whose thread 0
-of each block reads ``clock64()`` between the kernel's phases, runs it
-once at the tracker's shape, and prints the SM cycles of each phase: the
-median over all blocks up to the ticket, then each block of the last
-cluster for the tail.  A phase that ends at a barrier includes the wait
-for the slowest thread.
+``--phases`` builds a copy of ``csrc/fused_match.cu`` whose thread 0 of
+each block reads ``clock64()`` and ``%globaltimer`` at each ``// ---- phase:``
+mark, runs it once at each shape, and prints for each of the two kernels
+(the products and the finish) the median and the largest SM cycles of each
+phase over its blocks, and its timeline in ns from the products' first
+block's start: first and last block start, last end, and for the finish
+the end of its last wait for the products.  A phase that ends at a barrier
+includes the wait for the slowest thread.
 
 ``--profile`` traces the tracker slice (1080p, 64 streams, 8 frame
 batches, seed 4) with ``torch.profiler``: device time per frame step by
@@ -51,49 +55,45 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-from chip_smoke import BATCHES, SEED, STREAMS, _match_case, fused_bound  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    BATCHES,
+    FUSED_SHAPES as SHAPES,
+    SEED,
+    STREAMS,
+    _match_case,
+    fused_bound,
+)
 from face_detection_recognization_pca_tpu_torch import bench  # noqa: E402
 from face_detection_recognization_pca_tpu_torch import device as port_device  # noqa: E402
 from face_detection_recognization_pca_tpu_torch.ops import _build  # noqa: E402
 from face_detection_recognization_pca_tpu_torch.ops import fused_match as tfm  # noqa: E402
 
-D_SPLITS = (64, 96, 128, 256)
-# name -> (edits of csrc/fused_match.cu as (pattern, replacement), the
-# wrapper's constants that must follow them).  The "without ..." variants
-# drop one part of the work to show what it costs; their answers are
-# wrong and only their times mean anything.
-VARIANTS = {
-    "as built": ([], {}),
-    "without the tail": ([(r"  if \(!is_last\) return;", "  return;")], {}),
-    "without the scores": ([(r"n0 < N; n0 \+= kCluster", "n0 < 0; n0 += kCluster")], {}),
-    "2 stages": ([(r"constexpr int kStages = 3;", "constexpr int kStages = 2;")], {}),
-    "4 stages": ([(r"constexpr int kStages = 3;", "constexpr int kStages = 4;")], {}),
-    "8 warps": ([(r"constexpr int kThreads = 512;", "constexpr int kThreads = 256;")], {}),
-    "clusters of 4": ([(r"constexpr int kCluster = 8;", "constexpr int kCluster = 4;")],
-                      {"_CLUSTER": 4}),
-    "32 crops a block": ([(r"constexpr int kTileB = 64;", "constexpr int kTileB = 32;")],
-                         {"_TILE_B": 32}),
+# name -> the wrapper's plan constants.
+PLANS = {
+    "as built": {},
+    "splits <= 16": {"_MAX_SPLITS": 16},
+    "splits <= 32": {"_MAX_SPLITS": 32},
+    "splits <= 48": {"_MAX_SPLITS": 48},
+    "splits <= 96": {"_MAX_SPLITS": 96},
+    "splits <= 132": {"_MAX_SPLITS": 132},
+    "128-crop tiles only": {"_SMALL_B": 0},
+    "64-crop tiles only": {"_SMALL_B": 1 << 30},
+    "4 crops per finishing block": {"_FINISH_ROWS": (4, 4)},
+    "8 crops per finishing block": {"_FINISH_ROWS": (8, 8)},
 }
-
-
-# (anchor in csrc/fused_match.cu, name of the phase that ends there): a
-# clock64() read goes in front of each anchor, and one at the kernel's end.
-PHASES = [
-    ("  cg::cluster_group cluster = cg::this_cluster();\n", None),
-    ("#pragma unroll\n  for (int q = 0; q < kOutPerThread; ++q) {\n", "products"),
-    ("  cluster.sync();  // every block's partial is in its red\n", "slice sums"),
-    ("  {\n    constexpr int kRankOut", "barrier 1"),
-    ("  __threadfence();  // the cluster's partial", "cluster sums"),
-    ("  // ---- 2. The last cluster", "fence, barrier 2"),
-    ("  // Rank q finishes crops r0..r0+7", "ticket, barrier 3"),
-    ("  // The cluster barrier's release and acquire", "tail sums, norms"),
-    ("  if (tid < kTileB) fnorm[tid] = ", "barrier 4"),
-    ("  // This block's best per row, over the 32 lanes", "scores"),
-    ("  cluster.sync();  // every rank's candidates are in\n", "candidates"),
-    ("  if (tid < own_rows) {  // the ranks' candidates", "barrier 5"),
-    ("  cluster.sync();  // no block leaves while another reads its shared memory\n}",
-     "combine, barrier 6"),
-]
+# name -> edits of csrc/fused_match.cu as (pattern, replacement).
+VARIANTS = {
+    "as built": [],
+    "finish returns at once": [(r'(griddepcontrol\.wait;\\n" ::: "memory"\);[^\n]*\n)',
+                                r"\1  return;\n")],
+    "without the scores": [(r"for \(int n0 = 0; n0 < N; n0 \+= kGCols\)",
+                            "for (int n0 = 0; n0 < 0; n0 += kGCols)")],
+    "scores without their products": [(r"if \(8 \* warp < K - c \* kTileK\) \{",
+                                       "if (false) {")],
+    "scores without their epilogue": [(r"if \(colg < N\) \{", "if (false) {")],
+    "without the dependent launch": [(r"config\.numAttrs = 1;", "config.numAttrs = 0;")],
+}
+PHASE_MARK = re.compile(r"  // ---- phase: ([a-z ]+) ----\n")
 
 
 def card() -> str:
@@ -103,47 +103,77 @@ def card() -> str:
     ).stdout.strip()
 
 
-def slice_case(dev):
-    """(crops, m, bias, gallery_t, gnorm, mask None) of phase 3's slice."""
+def shape_case(dev, b: int, d: int):
+    """(crops, m, bias, gallery_t, gnorm, m_split) at (B, D), k 64, N 256,
+    crops near gallery rows i % 256."""
     gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    return _match_case(dev, gen, 64, 96 * 96, 64, 256, near=list(range(0, 256, 4)))
+    gen.manual_seed(1)
+    crops, m, bias, gallery_t, gnorm, _ = _match_case(dev, gen, b, d, 64, 256,
+                                                      near=[i % 256 for i in range(b)])
+    return crops, m, bias, gallery_t, gnorm, tfm.split_m(m)
 
 
-def build_variant(name: str) -> tuple:
-    """(library, ptxas summary) of the source with VARIANTS[name] applied."""
-    src = (_build.CSRC / "fused_match.cu").read_text()
-    for pattern, repl in VARIANTS[name][0]:
-        src, n = re.subn(pattern, repl, src)
-        if n != 1:
-            raise RuntimeError(f"{name}: {pattern!r} matched {n} times")
+def kernel_call(case):
+    crops, m, bias, gallery_t, gnorm, m_split = case
+    return lambda: tfm.fused_match(crops, m, bias, gallery_t, gnorm, m_split=m_split)
+
+
+def time_shapes(dev, smi: str) -> None:
+    for name, (b, d) in SHAPES.items():
+        case = shape_case(dev, b, d)
+        crops, m, bias, gallery_t, gnorm, _ = case
+        lin = tfm.LinearizedModel(m, bias, gallery_t, gnorm,
+                                  torch.zeros(256, dtype=torch.int32, device=dev), (1, d))
+        turns = bench.time_in_turns(
+            {"plain": lambda: tfm.recognize_linearized(lin, crops), "kernel": kernel_call(case),
+             "library": lambda: crops @ m},
+            ("plain", "kernel", "library", "library", "kernel", "plain"), loop_iters=50,
+            graph_calls=20)
+        dev_us = {k: [round(x * 1e3, 3) for x in v] for k, v in turns["device"].items()}
+        bnd = fused_bound(b, d, 64, 256)
+        share = bnd["bound_ms"] * 1e3 / (sum(dev_us["kernel"]) / len(dev_us["kernel"]))
+        print(f"[time] {name}: {json.dumps(tfm._grid(b, d, 64, tfm._sm_count(0))._asdict())}; "
+              f"device-only us per call {json.dumps(dev_us)}; bound {bnd['bound_ms'] * 1e3:.3f} "
+              f"us ({bnd['bound_by']}), share {share:.3f}; card {smi}")
+
+
+def build_copy(name: str, src: str) -> ctypes.CDLL:
+    """The library built from ``src`` as build/sweep_fused/<name>.cu."""
     slug = re.sub(r"\W+", "_", name).strip("_")
     out = REPO / "build" / "sweep_fused"
     out.mkdir(parents=True, exist_ok=True)
     (out / f"{slug}.cu").write_text(src)
-    lib = out / f"lib{slug}.so"
-    proc = _build.nvcc(out / f"{slug}.cu", lib)
+    proc = _build.nvcc(out / f"{slug}.cu", out / f"lib{slug}.so")
     if proc.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
-    regs = re.findall(r"Used (\d+) registers", proc.stdout + proc.stderr)
-    spills = re.findall(r"(\d+) bytes spill stores", proc.stdout + proc.stderr)
-    return tfm._declare(ctypes.CDLL(str(lib))), f"regs {regs}, spill stores {spills}"
+    return tfm._declare(ctypes.CDLL(str(out / f"lib{slug}.so")))
 
 
-def time_slice(dev, smi: str) -> None:
-    crops, m, bias, gallery_t, gnorm, _ = slice_case(dev)
-    lin = tfm.LinearizedModel(m, bias, gallery_t, gnorm,
-                              torch.zeros(gallery_t.shape[1], dtype=torch.int32, device=dev),
-                              (96, 96))
-    fns = {"plain": lambda: tfm.recognize_linearized(lin, crops),
-           "kernel": lambda: tfm.fused_match(crops, m, bias, gallery_t, gnorm),
-           "library": lambda: crops @ m}
-    turns = bench.time_in_turns(fns, ("plain", "kernel", "library", "library", "kernel", "plain"))
-    prof = {name: bench.profiler_ms(fn, 50) for name, fn in fns.items()}
-    bnd = fused_bound(*crops.shape, *gallery_t.shape)
-    print(f"[time] B=64 D=9216 k=64 N=256 ms per call, in turns: {json.dumps(turns)}; "
-          f"torch.profiler kernel sums {json.dumps(prof)}; bound {bnd['bound_ms']:.5f} ms "
-          f"({bnd['bound_by']}); card {smi}")
+def build_variant(name: str) -> ctypes.CDLL:
+    src = (_build.CSRC / "fused_match.cu").read_text()
+    for pattern, repl in VARIANTS[name]:
+        src, n = re.subn(pattern, repl, src)
+        if n != 1:
+            raise RuntimeError(f"{name}: {pattern!r} matched {n} times")
+    return build_copy(name, src)
+
+
+def using(lib=None, **constants):
+    """Set the wrapper's library and constants; returns the restore."""
+    keys = ("_lib", "_MAX_SPLITS", "_SMALL_B", "_FINISH_ROWS")
+    saved = {key: getattr(tfm, key) for key in keys}
+    if lib is not None:
+        tfm._lib = lambda: lib
+    for key, value in constants.items():
+        setattr(tfm, key, value)
+    tfm._WORKSPACE.clear()  # fresh scratch of the plan's shape
+
+    def restore():
+        for key, value in saved.items():
+            setattr(tfm, key, value)
+        tfm._WORKSPACE.clear()
+
+    return restore
 
 
 def sweep(dev, smi: str) -> None:
@@ -151,44 +181,31 @@ def sweep(dev, smi: str) -> None:
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         built = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
     print(f"[sweep] {len(built)} variants built in {time.perf_counter() - t0:.1f} s")
-    for name, (_, ptxas) in built.items():
-        print(f"[sweep] {name}: {ptxas}")
-
-    crops, m, bias, gallery_t, gnorm, _ = slice_case(dev)
-    ids_p, conf_p = tfm._match_plain(crops, m, bias, gallery_t, gnorm, None)
-    saved = {key: getattr(tfm, key) for key in ("_lib", "_D_SPLIT", "_CLUSTER", "_TILE_B")}
-
-    def use(name):
-        for key, value in saved.items():
-            setattr(tfm, key, value)
-        for key, value in VARIANTS[name][1].items():
-            setattr(tfm, key, value)
-        tfm._lib = lambda lib=built[name][0]: lib
-        tfm._WORKSPACE.clear()  # fresh counters and scratch of the variant's shape
-
-    times = {name: {} for name in VARIANTS}
-    try:
-        for name in VARIANTS:
-            if name.startswith("without"):
-                continue
-            use(name)
-            ids_k, conf_k = tfm.fused_match(crops, m, bias, gallery_t, gnorm)
-            torch.cuda.synchronize()
-            print(f"[sweep] {name}: ids equal to plain {bool(torch.equal(ids_k, ids_p))}, "
-                  f"max|dconf| {float((conf_k - conf_p).abs().max()):.3g}")
+    for shape, (b, d) in SHAPES.items():
+        case = shape_case(dev, b, d)
+        want = tfm._match_plain(*case[:5], None)
+        times = {}
+        for name, consts in list(PLANS.items()) + list(reversed(PLANS.items())):
+            restore = using(**consts)
+            try:
+                ids, conf = kernel_call(case)()
+                torch.cuda.synchronize()
+                if not torch.equal(ids, want[0]) or float((conf - want[1]).abs().max()) > 1e-5:
+                    raise RuntimeError(f"{name} at {shape}: the kernel disagrees with plain")
+                ms = bench.cuda_graph_ms(kernel_call(case), 20)
+                plan = tfm._grid(b, d, 64, tfm._sm_count(0))
+            finally:
+                restore()
+            times.setdefault(f"{name} {tuple(plan)}", []).append(round(ms * 1e3, 3))
         for name in list(VARIANTS) + list(reversed(VARIANTS)):
-            use(name)
-            for split in D_SPLITS:
-                tfm._D_SPLIT = split
-                ms = bench.cuda_graph_ms(lambda: tfm.fused_match(crops, m, bias, gallery_t, gnorm))
-                times[name].setdefault(f"d_split {split}", []).append(round(ms * 1e3, 3))
-    finally:
-        for key, value in saved.items():
-            setattr(tfm, key, value)
-        tfm._WORKSPACE.clear()
-    for name, t in times.items():
-        print(f"[sweep] {name}: device-only us per call (in order, in reverse) {json.dumps(t)}; "
-              f"card {smi}")
+            restore = using(built[name])
+            try:
+                ms = bench.cuda_graph_ms(kernel_call(case), 20)
+            finally:
+                restore()
+            times.setdefault(f"source {name}", []).append(round(ms * 1e3, 3))
+        print(f"[sweep] {shape}: device-only us per call (in order, in reverse; plan = splits, "
+              f"k chunks, tiles, tile_b, chunks per split) {json.dumps(times)}; card {smi}")
     one = torch.zeros(1, device=dev)
     floor = [bench.cuda_graph_ms(lambda: one.add_(1.0)) for _ in range(2)]
     print(f"[sweep] one more kernel in a CUDA graph (one-element add_): device-only us "
@@ -197,58 +214,79 @@ def sweep(dev, smi: str) -> None:
 
 def phases(dev, smi: str) -> None:
     src = (_build.CSRC / "fused_match.cu").read_text()
-    src = src.replace('#include "mma_sync.cuh"\n',
-                      '#include "mma_sync.cuh"\n__device__ long long phase_clock[4096][16];\n', 1)
-    mark = "  if (threadIdx.x == 0) phase_clock[blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y " \
-           "* blockIdx.z)][{}] = clock64();\n"
-    for i, (anchor, _) in enumerate(PHASES):
-        if src.count(anchor) != 1:
-            raise RuntimeError(f"phase anchor {anchor!r} found {src.count(anchor)} times")
-        if anchor.endswith("}"):  # the kernel's end: after the last barrier
-            src = src.replace(anchor, anchor[:-1] + mark.format(i) + "}")
-        else:
-            src = src.replace(anchor, mark.format(i) + anchor)
-    src = src.replace('extern "C" {', 'extern "C" {\nint phase_cycles(long long* out) {\n'
-                      '  return (int)cudaMemcpyFromSymbol(out, phase_clock, sizeof(phase_clock));\n}\n'
-                      'int phase_reset() {\n  void* p;\n  cudaGetSymbolAddress(&p, phase_clock);\n'
-                      '  return (int)cudaMemset(p, 0, sizeof(phase_clock));\n}\n', 1)
-    out = REPO / "build" / "sweep_fused"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "phases.cu").write_text(src)
-    proc = _build.nvcc(out / "phases.cu", out / "libphases.so")
-    if proc.returncode != 0:
-        raise RuntimeError(f"phases: nvcc failed\n{proc.stdout}{proc.stderr}")
-    lib = tfm._declare(ctypes.CDLL(str(out / "libphases.so")))
-    lib.phase_cycles.argtypes = [ctypes.c_void_p]
-    crops, m, bias, gallery_t, gnorm, _ = slice_case(dev)
-    as_built = tfm._lib
-    try:
-        tfm._lib = lambda: lib
-        tfm._WORKSPACE.clear()
-        for _ in range(3):  # warm up, then one call on cleared clocks
-            tfm.fused_match(crops, m, bias, gallery_t, gnorm)
-        torch.cuda.synchronize()
-        if lib.phase_reset() != 0:
-            raise RuntimeError("phases: clearing the clocks failed")
-        tfm.fused_match(crops, m, bias, gallery_t, gnorm)
-        torch.cuda.synchronize()
-    finally:
-        tfm._lib = as_built
-        tfm._WORKSPACE.clear()
-    clocks = np.zeros((4096, 16), np.int64)
-    if lib.phase_cycles(clocks.ctypes.data) != 0:
-        raise RuntimeError("phases: reading the clocks failed")
-    blocks = tfm._grid(*crops.shape, m.shape[1])[0]
-    names = [name for _, name in PHASES[1:]]
-    cycles = np.diff(clocks[:blocks, :len(PHASES)], axis=1)
-    first = names.index("fence, barrier 2") + 1  # the phases every block runs
-    print(f"[phases] B=64 D=9216 k=64 N=256, d_split {tfm._D_SPLIT}, {blocks} blocks: SM cycles, "
-          f"median over all blocks: "
-          + json.dumps({n: int(np.median(cycles[:, i])) for i, n in enumerate(names[:first])})
-          + f"; card {smi}")
-    last = cycles[clocks[:blocks, len(PHASES) - 1] > 0]
-    print(f"[phases] the last cluster's {len(last)} blocks, SM cycles per block: "
-          + json.dumps({n: last[:, i].tolist() for i, n in enumerate(names)}) + f"; card {smi}")
+    finish_at = src.index("fused_match_finish(")  # the second kernel's definition
+    marks = [(m.start(), m[1]) for m in PHASE_MARK.finditer(src)]
+    kernels = {"products": [n for at, n in marks if at < finish_at],
+               "finish": [n for at, n in marks if at > finish_at]}
+    if any(not names or names[-1] != "end" for names in kernels.values()):
+        raise RuntimeError(f"phase marks {kernels}: each kernel's last must be 'end'")
+    src = src.replace('#include "mma_sync.cuh"\n', '#include "mma_sync.cuh"\n'
+                      '__device__ long long phase_clock[2][1024][16];\n'
+                      '__device__ long long phase_ns[2][1024][16];\n', 1)
+    bid = "blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)"
+    mark = ("  if (threadIdx.x == 0) {{ long long ns_; asm volatile(\"mov.u64 %0, %%globaltimer;\" "
+            ": \"=l\"(ns_)); phase_clock[{k}][" + bid + "][{i}] = clock64(); phase_ns[{k}][" + bid +
+            "][{i}] = ns_; }}\n")
+    # A mark at each phase mark; phase i of a kernel runs from its mark i to
+    # its mark i + 1.
+    at = 0
+    for k, names in enumerate(kernels.values()):
+        for i, name in enumerate(names):
+            anchor = f"  // ---- phase: {name} ----\n"
+            at = src.index(anchor, at)
+            src = src[:at] + mark.format(k=k, i=i) + anchor.replace("phase:", "mark:") + \
+                src[at + len(anchor):]
+    src = src.replace('extern "C" {', """extern "C" {
+int phase_read(long long* c, long long* t) {
+  if (cudaMemcpyFromSymbol(c, phase_clock, sizeof(phase_clock))) return 1;
+  return (int)cudaMemcpyFromSymbol(t, phase_ns, sizeof(phase_ns));
+}
+int phase_reset() {
+  void* p;
+  cudaGetSymbolAddress(&p, phase_clock);
+  if (cudaMemset(p, 0, sizeof(phase_clock))) return 1;
+  cudaGetSymbolAddress(&p, phase_ns);
+  return (int)cudaMemset(p, 0, sizeof(phase_ns));
+}
+""", 1)
+    lib = build_copy("phases", src)
+    lib.phase_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    for shape, (b, d) in SHAPES.items():
+        case = shape_case(dev, b, d)
+        restore = using(lib)
+        try:
+            for _ in range(3):  # warm up, then one call on cleared clocks
+                kernel_call(case)()
+            torch.cuda.synchronize()
+            if lib.phase_reset() != 0:
+                raise RuntimeError("phases: clearing the clocks failed")
+            kernel_call(case)()
+            torch.cuda.synchronize()
+            plan = tfm._grid(b, d, 64, tfm._sm_count(0))
+        finally:
+            restore()
+        clocks, ns = np.zeros((2, 1024, 16), np.int64), np.zeros((2, 1024, 16), np.int64)
+        if lib.phase_read(clocks.ctypes.data, ns.ctypes.data) != 0:
+            raise RuntimeError("phases: reading the clocks failed")
+        blocks = {"products": plan.splits * plan.k_chunks * plan.tiles,
+                  "finish": -(-b // plan.finish_rows)}
+        t0 = ns[0, :blocks["products"], 0].min()
+        out = {}
+        for k, (kernel, names) in enumerate(kernels.items()):
+            c = clocks[k, :blocks[kernel], :len(names)]
+            t = ns[k, :blocks[kernel], :len(names)] - t0
+            out[kernel] = {
+                "blocks": blocks[kernel],
+                "median SM cycles": {n: int(np.median(np.diff(c, axis=1)[:, i]))
+                                     for i, n in enumerate(names[:-1])},
+                "max SM cycles": {n: int(np.max(np.diff(c, axis=1)[:, i]))
+                                  for i, n in enumerate(names[:-1])},
+                "ns from the first start: first start, last start, last end":
+                    [int(t[:, 0].min()), int(t[:, 0].max()), int(t[:, -1].max())],
+            }
+            if kernel == "finish":
+                out[kernel]["ns: last wait's end"] = int(t[:, names.index("sums")].max())
+        print(f"[phases] {shape}, plan {tuple(plan)}: {json.dumps(out)}; card {smi}")
 
 
 def profile(dev, smi: str) -> None:
@@ -301,7 +339,7 @@ def profile(dev, smi: str) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--variants", action="store_true", help="build and time VARIANTS")
+    parser.add_argument("--variants", action="store_true", help="time PLANS and VARIANTS")
     parser.add_argument("--phases", action="store_true", help="SM cycles per kernel phase")
     parser.add_argument("--profile", action="store_true", help="trace the tracker slice")
     args = parser.parse_args()
@@ -309,11 +347,11 @@ def main() -> int:
     port_device.disable_tf32()
     smi = card()
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
-    time_slice(dev, smi)
-    if args.variants:
-        sweep(dev, smi)
+    time_shapes(dev, smi)
     if args.phases:
         phases(dev, smi)
+    if args.variants:
+        sweep(dev, smi)
     if args.profile:
         profile(dev, smi)
     return 0

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from tf32_emulation import tile_tf32
+from tf32_emulation import dots_tf32, rna_tf32
 
 from face_detection_recognization_pca_tpu.models import eigenfaces as jef
 from face_detection_recognization_pca_tpu.ops import pallas_kernels as jpk
@@ -199,35 +199,46 @@ def test_fused_match_counts_no_launch_on_cpu():
 
 
 def _kernel_tf32(crops, m, bias, gallery_t, gnorm, passes):
-    """The cosines of ``csrc/fused_match.cu`` emulated in float32: each
-    block's D split by ``tile_tf32`` (3xTF32, or one TF32 pass), the
-    blocks of a cluster added in rank order, the clusters in ascending
-    order, then the bias; the scores by ``tile_tf32`` over k, divided by
-    the norms as the kernel divides."""
+    """The cosines of ``csrc/fused_match.cu`` emulated in float32, in its
+    order of sums (3xTF32, or one TF32 pass).  The products: each D range
+    of the wrapper's plan runs its 32-float chunks in order, 8-deep steps
+    into one accumulator (``dots_tf32``); in 64-crop tiles the two
+    warpgroups take alternate chunks and their accumulators are added,
+    even chunks first.  The finish adds the ranges in ascending order from
+    0, then the bias.  The scores: warp w takes the 8-deep steps w, w + 8,
+    ... of k into its accumulator, and the warps' dots are added in warp
+    order; divided by the norms as the kernel divides."""
     b, d = crops.shape
     k = m.shape[1]
-    d_split, cluster = tfm._D_SPLIT, tfm._CLUSTER
-    splits = tfm._grid(b, d, k)[0]
-    pad = splits * d_split - d
-    a = np.pad(crops, ((0, 0), (0, pad))).reshape(b, splits, d_split).transpose(1, 0, 2)
-    w = np.pad(m, ((0, pad), (0, 0))).reshape(splits, d_split, k)
-    blocks = tile_tf32(a, w, passes).reshape(splits // cluster, cluster, b, k)
-    per_cluster = np.zeros(blocks.shape[:1] + (b, k), np.float32)
-    for rank in range(cluster):
-        per_cluster = per_cluster + blocks[:, rank]
+    plan = tfm._grid(b, d, k)
+    chunks = -(-d // 32)
     feats = np.zeros((b, k), np.float32)
-    for part in per_cluster:
-        feats = feats + part
+    for s in range(plan.splits):
+        parts = [[], []]
+        for i, c in enumerate(range(s * plan.chunks_per_split,
+                                    min(chunks, (s + 1) * plan.chunks_per_split))):
+            parts[i % 2 if plan.tile_b == 64 else 0].append(slice(32 * c, min(d, 32 * c + 32)))
+        partial = np.zeros((b, k), np.float32)
+        for cols in parts:
+            if cols:
+                idx = np.concatenate([np.arange(d)[c] for c in cols])
+                partial = partial + dots_tf32(crops[:, idx], m[idx].T, passes)
+        feats = feats + partial
     feats = feats + bias
     fnorm = np.sqrt(np.sum(feats * feats, axis=1, dtype=np.float32))
-    return tile_tf32(feats, gallery_t, passes) / (fnorm[:, None] * gnorm[None, :])
+    dots = np.zeros((b, gallery_t.shape[1]), np.float32)
+    for w in range(8):
+        idx = np.concatenate([np.arange(k0, min(k, k0 + 8)) for k0 in range(8 * w, k, 64)]
+                             or [np.arange(0)])
+        dots = dots + dots_tf32(feats[:, idx], gallery_t[idx].T, passes)
+    return dots / (fnorm[:, None] * gnorm[None, :])
 
 
 def test_3xtf32_projection_keeps_float32_parity_where_tf32_does_not():
     """The kernel's arithmetic, emulated on tracker-like data: pixel-valued
     crops (the tracker's 96 x 96 face, shifted and noised, B 64, D 9216),
     the port's linearize_model fold of a 64-component model trained on
-    them, N 256, in the kernel's order of D splits.  Its cosines lie within
+    them, N 256, in the kernel's order of D ranges.  Its cosines lie within
     1e-6 of float64 and its ids equal the Pallas kernel's (interpret mode)
     and the JAX plain path's; one TF32 pass misses float64 by far more."""
     from face_detection_recognization_pca_tpu_torch import bench
@@ -261,27 +272,97 @@ def test_3xtf32_projection_keeps_float32_parity_where_tf32_does_not():
     np.testing.assert_allclose(cos3.max(axis=1), np.asarray(conf_j), rtol=0, atol=CONF_ATOL)
 
 
+# The five shapes of the main paths (k 64, N 256) with the plans the
+# wrapper gives them on a card of 132 SMs, then ragged cases.
 @pytest.mark.parametrize(
-    "b,d,k,n,fill16",
-    [(64, 9216, 64, 256, True), (130, 9216, 64, 256, True), (16, 4096, 300, 512, True),
-     (9, 2048, 7, 60, False), (5, 4099, 8, 33, False), (4, 576, 16, 42, False)],
+    "b,d,k,tma,plan",
+    [(32, 9216, 64, True, (58, 1, 1, 64, 5, 4)), (64, 9216, 64, True, (58, 1, 1, 64, 5, 4)),
+     (64, 16384, 64, True, (64, 1, 1, 64, 8, 4)), (512, 9216, 64, True, (32, 1, 4, 128, 9, 8)),
+     (768, 16384, 64, True, (22, 1, 6, 128, 24, 8)), (130, 9216, 64, True, None),
+     (16, 4096, 300, True, None), (9, 2048, 7, True, None), (5, 4099, 8, False, None),
+     (4, 576, 16, True, None), (1, 7, 1, False, None)],
 )
-def test_wrapper_picks_the_fill_and_sizes_grid_and_scratch(b, d, k, n, fill16):
-    """cp.async only where crops, m and gallery_t start on 16 bytes and D,
-    k and N are multiples of 4 (an offset view of the crops takes element
-    loads); the grid covers D in whole clusters of splits, k in 64-feature
-    chunks and B in 64-crop tiles, and the scratch holds one (B, k)
-    partial per cluster."""
-    crops, m, gallery_t = torch.zeros(b, d), torch.zeros(d, k), torch.zeros(k, n)
-    assert tfm._fill16(crops, m, gallery_t) == fill16
-    shifted = torch.zeros(b * d + 1)[1:].view(b, d)
-    assert not tfm._fill16(shifted, m, gallery_t)
-    x, y, z = tfm._grid(b, d, k)
-    assert x % tfm._CLUSTER == 0 and (x - tfm._CLUSTER) * tfm._D_SPLIT < d <= x * tfm._D_SPLIT
-    assert (y, z) == (-(-k // 64), -(-b // 64))
-    assert tfm._scratch_shape(b, d, k) == (x // tfm._CLUSTER, b, k)
-    if (b, d, k) == (64, 9216, 64):  # the tracker: 96 blocks in 12 clusters, all resident
-        assert (x, y, z) == (96, 1, 1)
+def test_wrapper_picks_the_fill_and_sizes_grid_and_scratch(b, d, k, tma, plan):
+    """TMA takes the crops only where they start on 16 bytes and D is a
+    multiple of 4 (an offset view takes element loads).  The grid cuts D's 32-float chunks into
+    equal ranges, none empty, at most _MAX_SPLITS of them, so that the
+    products make at most one wave of blocks; B tiles are 64 crops up to
+    _SMALL_B and 128 above, k chunks 64 features; the scratch holds one
+    partial per (tile, k chunk, range)."""
+    assert tfm._crops_tma(torch.zeros(b, d)) == tma
+    assert not tfm._crops_tma(torch.zeros(b * d + 1)[1:].view(b, d))
+    grid = tfm._grid(b, d, k)
+    chunks = -(-d // 32)
+    assert (grid.splits - 1) * grid.chunks_per_split < chunks <= grid.splits * grid.chunks_per_split
+    assert 1 <= grid.splits <= tfm._MAX_SPLITS
+    assert grid.tile_b == (64 if b <= tfm._SMALL_B else 128)
+    assert (grid.tiles, grid.k_chunks) == (-(-b // grid.tile_b), -(-k // 64))
+    assert grid.finish_rows == (4 if b <= tfm._SMALL_B else 8)
+    assert grid.splits * grid.k_chunks * grid.tiles <= 132
+    assert tfm._scratch_shape(b, d, k) == (grid.tiles, grid.k_chunks, grid.splits, grid.tile_b, 64)
+    if plan is not None:
+        assert tuple(grid) == plan
+
+
+def test_split_m_is_the_3xtf32_split_and_matches_jax_through_the_plain_path():
+    """split_m gives m's transpose, zero-padded to D rounded up to 4, as the
+    TF32 halves hi = rna(m.T) and lo = rna(m.T - hi) that the kernel streams;
+    linearize_model carries it, and LinearizedModel.to makes it again on
+    the target device.  Through the plain path, m rebuilt from the halves
+    gives the ids of the Pallas kernel (interpret mode), conf within
+    CONF_ATOL."""
+    rng = np.random.default_rng(21)
+    m = (rng.normal(size=(257, 8)) / 16).astype(np.float32)  # D padded to 260
+    split = tfm.split_m(torch.from_numpy(m))
+    mt = np.zeros((8, 260), np.float32)
+    mt[:, :257] = m.T
+    hi = rna_tf32(mt)
+    np.testing.assert_array_equal(split.hi.numpy(), hi)
+    np.testing.assert_array_equal(split.lo.numpy(), rna_tf32(mt - hi))
+    assert split.hi.is_contiguous() and split.lo.is_contiguous()
+    np.testing.assert_allclose((split.hi + split.lo).numpy()[:, :257], m.T, rtol=2 ** -21, atol=0)
+
+    b, d, k, n = 8, 256, 8, 40  # the Pallas kernel takes whole 128-deep D tiles
+    m = (rng.normal(size=(d, k)) / 16).astype(np.float32)
+    split = tfm.split_m(torch.from_numpy(m))
+    bias = rng.normal(size=k).astype(np.float32)
+    base = rng.normal(0, 25, (n, d)).astype(np.float32)
+    feats = base @ m + bias
+    gallery_t = np.ascontiguousarray(feats.T)
+    gnorm = np.linalg.norm(feats, axis=1).astype(np.float32)
+    crops = (base[[0, 3, 7, 11, 20, 21, 30, 39]] + rng.normal(0, 5, (b, d))).astype(np.float32)
+    ids_j, conf_j = jpk.fused_match_pallas(
+        jnp.asarray(crops), jnp.asarray(m), jnp.asarray(bias), jnp.asarray(gallery_t),
+        jnp.asarray(gnorm), tile_b=8, tile_d=128, interpret=True)
+    rebuilt = (split.hi + split.lo)[:, :d].T.contiguous()
+    ids_t, conf_t = tfm.fused_match(torch.from_numpy(crops), rebuilt, torch.from_numpy(bias),
+                                    torch.from_numpy(gallery_t), torch.from_numpy(gnorm),
+                                    m_split=tfm.split_m(rebuilt))
+    np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
+    np.testing.assert_allclose(conf_t.numpy(), np.asarray(conf_j), rtol=0, atol=CONF_ATOL)
+
+    _, tmodel, _ = _models(5)
+    lin = tfm.linearize_model(tmodel, (12, 12))
+    for got, want in zip(lin.m_split, tfm.split_m(lin.m)):
+        assert torch.equal(got, want)
+    moved = lin.to(torch.device("cpu"))
+    assert all(torch.equal(a, b) for a, b in zip(moved.m_split, lin.m_split))
+    assert moved.crop_shape == lin.crop_shape
+
+
+@pytest.mark.parametrize(
+    "bad,exc",
+    [(lambda s: s._replace(hi=s.hi.double()), TypeError),
+     (lambda s: s._replace(lo=s.lo[:, :-4].contiguous()), ValueError),
+     (lambda s: s._replace(hi=s.hi.T.contiguous().T), ValueError)],
+)
+def test_fused_match_checks_m_split(bad, exc):
+    """A split form of m is float32, contiguous, (k, D rounded up to 4)."""
+    args = _good_args()
+    split = tfm.split_m(args["m"])
+    tfm.fused_match(**args, m_split=split)
+    with pytest.raises(exc):
+        tfm.fused_match(**args, m_split=bad(split))
 
 
 @pytest.mark.parametrize("scaled,crop_shape", [(False, (19, 15)), (True, (21, 13))])

@@ -4,6 +4,8 @@ through them.  They skip without a GPU; on a machine with one, run
 ``python -m pytest tests/test_torch_gpu.py -m gpu``.  This file imports
 no JAX, so it runs where only the port is installed."""
 
+import math
+
 import pytest
 import torch
 
@@ -27,7 +29,8 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,d,k,n,masked", [(64, 9216, 64, 256, 0), (5, 4099, 8, 33, 3),
-                                            (512, 9216, 64, 256, 0), (1, 9216, 64, 256, 0)])
+                                            (512, 9216, 64, 256, 0), (1, 9216, 64, 256, 0),
+                                            (768, 16384, 64, 256, 0), (32, 9216, 64, 256, 0)])
 def test_kernel_matches_plain_on_card(cuda_device, b, d, k, n, masked):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     m = torch.randn(d, k, generator=g, device=cuda_device) / d ** 0.5
@@ -123,10 +126,13 @@ def _fused_case(device, b, d, k, n, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,d,k,n", [(130, 9216, 64, 256), (9, 2048, 7, 60)])
 def test_kernel_takes_three_crop_tiles_and_unaligned_rows(cuda_device, b, d, k, n):
-    """B = 130 spans three 64-crop tiles; k = 7 leaves m's rows off 16-byte
-    boundaries, so the kernel fills its tiles by element loads."""
+    """B = 130 spans two 128-crop tiles, the second of 2 crops; k = 7 is one
+    ragged k chunk.  The crops come by TMA; then a copy whose rows start off
+    16-byte boundaries comes by the producer's element loads, with the same
+    bits."""
     crops, m, bias, gallery_t, gnorm, near = _fused_case(cuda_device, b, d, k, n, seed=b)
-    assert tfm._fill16(crops, m, gallery_t) == (k % 4 == 0)
+    assert tfm._crops_tma(crops)
+    fills = dict(tfm.fused_match.fills)
     ids_k, conf_k = tfm.fused_match(crops, m, bias, gallery_t, gnorm)
     lin = tfm.LinearizedModel(m, bias, gallery_t, gnorm, torch.zeros(n, dtype=torch.int32),
                               (1, d))
@@ -136,14 +142,22 @@ def test_kernel_takes_three_crop_tiles_and_unaligned_rows(cuda_device, b, d, k, 
     assert float((conf_k - conf_p).abs().max()) <= CONF_ATOL
     if k == 64:
         assert torch.equal(ids_k.long(), near)
+    shifted = torch.empty(b * d + 1, device=cuda_device)[1:].view(b, d)
+    shifted.copy_(crops)
+    assert not tfm._crops_tma(shifted)
+    ids_e, conf_e = tfm.fused_match(shifted, m, bias, gallery_t, gnorm)
+    assert torch.equal(ids_e, ids_k) and torch.equal(conf_e, conf_k)
+    assert tfm.fused_match.fills == {"tma": fills["tma"] + 1,
+                                     "elements": fills["elements"] + 1}
 
 
 @pytest.mark.gpu
-def test_kernel_repeats_bit_for_bit_and_replays_in_a_cuda_graph(cuda_device):
-    """The split sums run in a fixed order, so two calls give the same
-    bits; the counters return to 0, so a CUDA graph's replays give them
-    too."""
-    args = _fused_case(cuda_device, 64, 9216, 64, 256, seed=7)[:5]
+@pytest.mark.parametrize("b", [64, 512])
+def test_kernel_repeats_bit_for_bit_and_replays_in_a_cuda_graph(cuda_device, b):
+    """The D ranges are added in a fixed order and nothing is carried from
+    one call to the next, so two calls give the same bits, and so do a
+    CUDA graph's replays, at the tracker's B and the headline's."""
+    args = _fused_case(cuda_device, b, 9216, 64, 256, seed=7)[:5]
     first, second = tfm.fused_match(*args), tfm.fused_match(*args)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     side = torch.cuda.Stream()
@@ -163,10 +177,10 @@ def test_kernel_repeats_bit_for_bit_and_replays_in_a_cuda_graph(cuda_device):
 @pytest.mark.gpu
 def test_wrapper_sizes_what_the_kernel_needs(cuda_device):
     lib = tfm._lib()
-    for b, d, k in [(64, 9216, 64), (130, 4099, 300), (1, 7, 1), (9, 2048, 7)]:
-        clusters, _, _ = tfm._scratch_shape(b, d, k)
-        assert lib.fused_match_scratch_floats(b, d, k, tfm._D_SPLIT) == clusters * b * k
-        assert lib.fused_match_counters(b) == tfm._grid(b, d, k)[2]
+    for b, d, k in [(64, 9216, 64), (130, 4099, 300), (1, 7, 1), (9, 2048, 7), (768, 16384, 64)]:
+        grid = tfm._grid(b, d, k, tfm._sm_count(0))
+        want = math.prod(tfm._scratch_shape(b, d, k, tfm._sm_count(0)))
+        assert lib.fused_match_partial_floats(b, k, grid.tile_b, grid.splits) == want
 
 
 def _gallery(device, b, k, n, seed):
@@ -342,8 +356,10 @@ def test_headline_on_card_under_a_tf32_caller(cuda_device):
     assert after["matmul_allow_tf32"] is True
     assert detail["self_check"] == "ok" and result["value"] > 0
     assert result["unit"] == "frames/s/card" and detail["device"] != "cpu"
-    assert detail["fused_match_launches"] == 2 + 3 * 2 + 6  # first, warm-up, 3 windows, trace
+    # first, warm-up, 3 windows, 3 profiled windows, trace
+    assert detail["fused_match_launches"] == 2 + 3 * 2 + 3 * 2 + 6
     assert detail["device_ms"] is None or detail["busy_share"] > 0
+    assert len(detail["window_device_ms"]) == len(detail["window_traced_ms"]) == 3
 
 
 @pytest.mark.gpu

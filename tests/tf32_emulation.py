@@ -34,21 +34,3 @@ def dots_tf32(feats: np.ndarray, gallery: np.ndarray, passes: int) -> np.ndarray
             acc += x @ y.T
     return acc
 
-
-def tile_tf32(a: np.ndarray, b: np.ndarray, passes: int) -> np.ndarray:
-    """a (..., R, depth) @ b (..., depth, C) as the fused kernel's
-    ``tile_product`` takes it, in float32: depth in steps of 32, whose four
-    k8 slices go to four accumulators (one per warp), which are then added
-    in slice order.  Depth past the operands is zero, as the kernel's
-    zero-filled tiles are."""
-    depth = a.shape[-1]
-    pad = -depth % 32
-    a = np.concatenate([a, np.zeros(a.shape[:-1] + (pad,), np.float32)], axis=-1)
-    b = np.concatenate([b, np.zeros(b.shape[:-2] + (pad, b.shape[-1]), np.float32)], axis=-2)
-    acc = np.zeros((4,) + a.shape[:-1] + (b.shape[-1],), np.float32)
-    for d0 in range(0, depth + pad, 32):
-        for s in range(4):
-            k = slice(d0 + 8 * s, d0 + 8 * s + 8)
-            for x, y in _terms(a[..., k], b[..., k, :], passes):
-                acc[s] += np.matmul(x, y)
-    return ((acc[0] + acc[1]) + acc[2]) + acc[3]
