@@ -17,9 +17,10 @@ Phases, each printing a line:
    every instantiation of the fused match's products;
 3. fused kernel against plain: ``fused_match`` against
    ``recognize_linearized`` on the card at the tracker's shapes, a ragged
-   masked case, an exact tie, a zero-norm crop, k = 300, B = 130 (three
-   64-crop tiles), k = 7, B = 512 (the headline's batch) and B = 1 (the
-   scan's): ids equal, conf within 1e-5; the ragged case (D = 4099) loads
+   masked case, an exact tie, a zero-norm crop, k = 300, B = 130 (two
+   128-crop tiles), k = 7, B = 512 (the headline's batch), B = 1 (the
+   scan's) and k = 5,000 (past the features the finish keeps in shared
+   memory): ids equal, conf within 1e-5; the ragged case (D = 4099) loads
    its crops by element loads and the others by TMA; then two calls and a
    CUDA graph's replays must give the same bits, at B = 64 and B = 512.
    Kernel, plain and ``crops @ m`` (``library_ms``) are timed
@@ -27,9 +28,10 @@ Phases, each printing a line:
    events around 200 Python calls and around replays of a CUDA graph of
    50 calls (the card alone, the ``ms`` of the JSON line), with
    ``torch.profiler``'s kernel sums as a cross-check, beside the card's
-   bound for the same work; the same at B = 512 (``b512`` in the JSON
-   line); then kernel, plain, ``crops @ m`` and the bound device-only at
-   the five shapes of the main paths (``shapes`` in the JSON line);
+   bound for the same work; then, each held against plain, kernel,
+   plain, ``crops @ m`` and the bound device-only at the six shapes of
+   the main paths (``FUSED_SHAPES``; ``shapes`` in the JSON line, and
+   B = 512 also as ``b512``);
 4. the tracker slice: ``bench.tracker_recognizer`` at 1080p with 64
    streams and 8 frame batches (seed 4), a snapshot-PCA model trained on
    the card, then 8 ``process_batch`` steps and one 8-frame
@@ -233,7 +235,7 @@ times, and ``event_loop_ms``, ``plain_event_loop_ms`` and ``library_ms``
 the event-loop ones; ``b512``, ``d16384``, ``b768_d16384`` and
 ``b32_d9216`` hold the same at the headline's, the multi-model scan's,
 geom256's and the gloo tracker ranks' shapes, taken in their phases, and
-``shapes`` all five taken in phase 3; ``fills`` counts the calls whose
+``shapes`` all six taken in phase 3; ``fills`` counts the calls whose
 crops came by TMA and by element loads.
 The last line is ``{"ok": true, "device":
 {...}}``.  Any failed check raises,
@@ -344,10 +346,12 @@ STREAMS, BATCHES, SEED = 64, 8, 4
 HEADLINE_STREAMS, HEADLINE_BATCHES = 16, 32
 G256_STREAMS = 24  # bench.headline_geom256's default: 768 windows of 256 x 256 per dispatch
 # (B, D) the main paths give the fused kernel (k 64, N 256): the gloo
-# tracker ranks, the tracker and scan, the multi-model scan, the headline,
-# geom256.
+# tracker ranks, the tracker and scan, the multi-model scan, the CLI bench
+# (``fdrp-torch bench --streams 4``: 4 streams x 64 frame batches), the
+# headline, geom256.
 FUSED_SHAPES = {"b32_d9216": (32, 9216), "b64_d9216": (64, 9216), "b64_d16384": (64, 16384),
-                "b512_d9216": (512, 9216), "b768_d16384": (768, 16384)}
+                "b256_d9216": (256, 9216), "b512_d9216": (512, 9216),
+                "b768_d16384": (768, 16384)}
 SCAN_FRAMES, SCAN_BATCH, SCAN_SEED, SCAN_PERSON = 256, 16, 7, "planted_person"
 DETECT_BATCH, DETECT_TEMPLATES, DETECT_SEED = 16, 8, 3
 MULTISCAN_FRAMES, MULTISCAN_BATCH, MULTISCAN_SEED, MULTISCAN_SIDE = 64, 16, 5, 128
@@ -459,9 +463,9 @@ def _kernel_label(mangled: str) -> str:
     m = re.search(r"fused_match_productsILb([01])ELi(\d+)E", mangled)
     if m:
         return f"products<{'tma' if m[1] == '1' else 'elements'},{m[2]}>"
-    m = re.search(r"fused_match_finishILi(\d+)E", mangled)
+    m = re.search(r"fused_match_finishILi(\d+)ELb([01])E", mangled)
     if m:
-        return f"finish<{m[1]}>"
+        return f"finish<{m[1]}{'' if m[2] == '1' else ',global'}>"
     # _Z<len><name>, or _ZN<len><namespace><len><name> for a kernel in an
     # anonymous namespace.
     m = re.match(r"_ZN(\d+)", mangled)
@@ -527,7 +531,7 @@ def phase_build() -> dict:
     finish = {k: v for k, v in fused.items() if k.startswith("finish<")}
     check(len(products) == 4 and all(v["HGMMA"] and v["UTMALDG"] for v in products.values()),
           f"every fused_match products kernel runs wgmma on TMA-loaded tiles: {products}")
-    check(len(finish) == 2 and all(v["HMMA"] for v in finish.values()),
+    check(len(finish) == 4 and all(v["HMMA"] for v in finish.values()),
           f"every fused_match finish kernel scores on the tensor cores: {finish}")
     return {"gallery_match": tiles, "fused_match": {**products, **finish}}
 
@@ -581,6 +585,8 @@ def phase_kernel_vs_plain(dev) -> dict:
         "k7": _match_case(dev, gen, 9, 2048, 7, 60, near=list(range(0, 60, 7))),
         "b512": _match_case(dev, gen, 512, 96 * 96, 64, 256, near=[i % 256 for i in range(512)]),
         "b1": _match_case(dev, gen, 1, 96 * 96, 64, 256, near=[201]),
+        # Past the k whose features the finish keeps in shared memory.
+        "k5000": _match_case(dev, gen, 6, 1024, 5000, 300, near=[0, 299, 7, 150, 64, 3]),
     }
     max_err = 0.0
     for name, (crops, m, bias, gallery_t, gnorm, mask) in cases.items():
@@ -613,6 +619,8 @@ def phase_kernel_vs_plain(dev) -> dict:
     check(fused_match(*cases["b512"])[0].tolist() == [i % 256 for i in range(512)],
           "B = 512 finds every near row")
     check(fused_match(*cases["b1"])[0].tolist() == [201], "B = 1 finds its near row")
+    check(fused_match(*cases["k5000"])[0].tolist() == [0, 299, 7, 150, 64, 3],
+          "k = 5,000 finds every near row")
 
     # The D ranges are added in a fixed order and nothing carries over from
     # one call to the next: two calls give the same bits, and so do a CUDA
@@ -672,33 +680,14 @@ def phase_kernel_vs_plain(dev) -> dict:
           f"kernel sums {json.dumps(prof)}; bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), "
           f"share {timing['share']:.3f}")
 
-    # The headline's batch: B = 512 in one call, four 128-crop tiles.
-    crops, m, bias, gallery_t, gnorm, _ = cases["b512"]
-    split = split_m(m)
-    lin = LinearizedModel(m, bias, gallery_t, gnorm, lin.labels, (96, 96))
-    turns = bench.time_in_turns(
-        {"plain": lambda: recognize_linearized(lin, crops),
-         "kernel": lambda: fused_match(crops, m, bias, gallery_t, gnorm, m_split=split),
-         "library": lambda: crops @ m},
-        ("plain", "kernel", "library", "library", "kernel", "plain"), loop_iters=50,
-        graph_calls=20)
-    mean = {clock: {name: sum(v) / len(v) for name, v in t.items()} for clock, t in turns.items()}
-    bnd = fused_bound(512, d, k, n)
-    b512 = {"ms": mean["device"]["kernel"], "event_loop_ms": mean["loop"]["kernel"],
-            "plain_ms": mean["device"]["plain"], "plain_event_loop_ms": mean["loop"]["plain"],
-            "library_ms": mean["loop"]["library"], "library_device_ms": mean["device"]["library"],
-            **bnd, "share": bnd["bound_ms"] / mean["device"]["kernel"]}
-    print(f"[kernel] headline shape B=512 D={d} k={k} N={n}, mean ms per call: "
-          f"{json.dumps(b512)}")
-
-    # The five shapes of the main paths, each held against plain and timed.
+    # The shapes of the main paths, each held against plain and timed.
     shapes = {tag: hold_fused_at(dev, b, d, tag) for tag, (b, d) in FUSED_SHAPES.items()}
     print(f"[kernel] device-only ms per call at the main paths' shapes (k 64, N 256): "
           + "; ".join(f"{tag}: kernel {v['ms']:.5f}, plain {v['plain_ms']:.5f}, crops @ m "
                       f"{v['library_device_ms']:.5f}, bound {v['bound_ms']:.5f} ({v['bound_by']}), "
                       f"share {v['share']:.3f}" for tag, v in shapes.items())
           + f"; {card_and_limit()}")
-    return {"max_abs_err": max_err, **timing, "b512": b512, "shapes": shapes}
+    return {"max_abs_err": max_err, **timing, "b512": shapes["b512_d9216"], "shapes": shapes}
 
 
 def phase_slice(dev, card: str) -> int:
@@ -1045,9 +1034,10 @@ def phase_headline(dev, card: str) -> tuple:
           f"frames per dispatch; step {detail['step_ms']} ms (host clock, best of 3 windows of "
           f"20 dispatches: {detail['window_step_ms']} ms; CUDA events around the same windows: "
           f"{detail['event_step_ms']} ms; 3 more windows under torch.profiler: kernels "
-          f"{detail['window_device_ms']} ms, host clock {detail['window_traced_ms']} ms per "
-          f"dispatch); device {detail['device_ms']} ms in "
-          f"{detail['kernel_launches']} kernels per dispatch (torch.profiler), busy share "
+          f"{detail['window_device_ms']} ms, host clock {detail['window_traced_ms']} ms, CUDA "
+          f"events {detail['window_traced_event_ms']} ms per dispatch); device "
+          f"{detail['device_ms']} ms in {detail['kernel_launches']} kernels per dispatch (the "
+          f"profiled windows), busy share "
           f"{detail['busy_share']}; {detail['headline_tflops']} TFLOP/s by the closed form of "
           f"{detail['headline_mflops_per_frame']} MFLOP per frame, "
           f"{detail['headline_tflops_pct']}% of the float32 peak; fused_match launches "
@@ -1778,7 +1768,7 @@ def phase_flow(dev, card: str) -> int:
               f"cli bench self-check: {detail['self_check']}")
         check(detail["device"] == card, f"cli bench ran on {detail['device']}")
         check(len(detail["window_step_ms"]) == len(detail["event_step_ms"]) == 3
-              and len(detail["window_device_ms"]) == 3,
+              and len(detail["window_device_ms"]) == len(detail["window_traced_event_ms"]) == 3,
               "cli bench reports every window on both clocks and its profiled windows' kernels")
         readings.append(line)
         print(f"[pipeline] cli.main(['bench', '--streams', '4', '--size', '1080p']) reading "
@@ -1786,7 +1776,8 @@ def phase_flow(dev, card: str) -> int:
               f"{detail['frames_per_dispatch']} frames per dispatch, step {detail['step_ms']} ms; "
               f"windows (ms per dispatch) host clock {detail['window_step_ms']}, CUDA events "
               f"{detail['event_step_ms']}; profiled windows kernels {detail['window_device_ms']}, "
-              f"host clock {detail['window_traced_ms']}; nvidia-smi clocks.sm, clocks.mem, "
+              f"host clock {detail['window_traced_ms']}, CUDA events "
+              f"{detail['window_traced_event_ms']}; nvidia-smi clocks.sm, clocks.mem, "
               f"power.draw, temperature.gpu before {smi['before']}, after {smi['after']}; "
               f"device {detail['device_ms']} ms, busy share "
               f"{detail['busy_share']}")
@@ -1797,13 +1788,23 @@ def phase_flow(dev, card: str) -> int:
           f"cli bench launched fused_match {launches} times")
 
     def spread(values) -> str:
+        if not values:
+            return "none"
         return f"{min(values):.4f}-{max(values):.4f} ({max(values) / min(values):.3f}x)"
 
     host = [v for r in readings for v in r["detail"]["window_step_ms"]]
     event = [v for r in readings for v in r["detail"]["event_step_ms"]]
+    # The profiled windows: the card's time per dispatch by CUDA events, and
+    # how much of it no kernel ran.
+    traced = [(e, k) for r in readings for e, k in zip(r["detail"]["window_traced_event_ms"],
+                                                       r["detail"]["window_device_ms"])
+              if k is not None]
     print(f"[pipeline] cli bench, {CLI_BENCH_READINGS} readings with no --device: frames/s/card "
           f"{[r['value'] for r in readings]}; ms per dispatch over all {len(host)} windows: host "
-          f"clock {spread(host)}, CUDA events {spread(event)}; fused_match launches {launches}, "
+          f"clock {spread(host)}, CUDA events {spread(event)}; over the {len(traced)} profiled "
+          f"windows: CUDA events {spread([e for e, _ in traced])}, kernels "
+          f"{spread([k for _, k in traced])}, no kernel running "
+          f"{[round(e - k, 4) for e, k in traced]}; fused_match launches {launches}, "
           f"{bench_s:.2f} s; phase {time.perf_counter() - t0:.2f} s; {card_and_limit()}")
     return launches
 

@@ -545,23 +545,36 @@ def kernel_families(rows: Sequence[Tuple[str, float, float]]) -> Dict[str, float
 
 def _traced_windows(fn: Callable[[], object], iters: int, windows: int = 3) -> tuple:
     """``windows`` windows of ``iters`` calls of ``fn``, each in its own
-    ``torch.profiler`` trace: (kernel ms per call, host-clock ms per call)
-    of each window; the kernel ms is None when a trace holds no device
-    time."""
+    ``torch.profiler`` trace and timed in that same pass on the host clock
+    and by CUDA events: (kernel ms per call, host-clock ms per call, CUDA
+    events' ms per call) of each window, and the (name, device us per call,
+    launches per call) of every kernel over all windows, as
+    :func:`traced_kernels` gives them.  A window's kernel ms is None when
+    its trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    device_ms, host_ms = [], []
+    device_ms, host_ms, event_ms, totals = [], [], [], {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
+            start.record()
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
+            end.record()
             torch.cuda.synchronize()
             host_ms.append((time.perf_counter() - t0) / iters * 1e3)
-        rows = device_kernels(prof)
+            event_ms.append(start.elapsed_time(end) / iters)
+        rows = [row for row in device_kernels(prof) if row[1] > 0]
         device_ms.append(sum(us for _, us, _ in rows) / 1e3 / iters if rows else None)
-    return device_ms, host_ms
+        for key, us, count in rows:
+            was = totals.get(key, (0.0, 0))
+            totals[key] = (was[0] + us, was[1] + count)
+    calls = windows * iters
+    rows = sorted(((key, us / calls, count / calls) for key, (us, count) in totals.items()),
+                  key=lambda r: -r[1])
+    return device_ms, host_ms, event_ms, rows
 
 
 def profiler_ms(fn: Callable[[], object], calls: int = 50) -> Union[float, None]:
@@ -729,14 +742,16 @@ def headline(
     device ``event_step_ms`` the same windows by CUDA events (``None``
     elsewhere), so a slow window shows which clock saw it.  Then, on a CUDA
     device, 3 more windows of ``iters`` dispatches each run under
-    ``torch.profiler`` (the timed windows stay unprofiled):
-    ``window_device_ms`` is each one's kernel time per dispatch and
-    ``window_traced_ms`` its host clock per dispatch, so a slow window
-    shows whether the card worked longer or waited (``None`` elsewhere).  The fps
+    ``torch.profiler`` (the timed windows stay unprofiled), each timed in
+    that same pass: ``window_device_ms`` is each one's kernel time per
+    dispatch, ``window_traced_ms`` its host clock and
+    ``window_traced_event_ms`` its CUDA events per dispatch, so a slow
+    profiled window shows whether the card worked longer or waited
+    (``None`` elsewhere).  The fps
     is published only if the step recognized what was planted: every
     reported position equals the planted one and every gallery row is 0,
-    over all frames; otherwise ``value`` is 0.  On a CUDA device
-    ``torch.profiler`` also gives the kernel time and launches per dispatch
+    over all frames; otherwise ``value`` is 0.  On a CUDA device the
+    profiled windows also give the kernel time and launches per dispatch
     (``device_ms``, ``kernel_launches``) and their share of the step
     (``busy_share``), and ``headline_tflops_pct`` is the closed-form
     TFLOP/s as a share of the card's float32 peak (:data:`PEAK_FLOPS`).
@@ -777,16 +792,17 @@ def headline(
     n_frames = t_frames * streams
     fps = n_frames / dt
 
-    window_device_ms = window_traced_ms = None
+    window_device_ms = window_traced_ms = window_traced_event_ms = None
+    rows = []
     if device.type == "cuda":
-        window_device_ms, window_traced_ms = _traced_windows(dispatch, iters)
+        window_device_ms, window_traced_ms, window_traced_event_ms, rows = _traced_windows(
+            dispatch, iters)
 
     offset_exact, id_rate = headline_self_check(out, offs, win_y, win_x)
     ok = offset_exact == 1.0 and id_rate == 1.0
     conf, tm_conf = out[1], out[2]
 
     device_ms = kernel_launches = busy_share = None
-    rows = traced_kernels(dispatch, 5) if device.type == "cuda" else []
     if rows:
         device_ms = sum(us for _, us, _ in rows) / 1e3
         kernel_launches = sum(count for _, _, count in rows)
@@ -821,6 +837,7 @@ def headline(
             "event_step_ms": event_step,
             "window_device_ms": window_device_ms,
             "window_traced_ms": window_traced_ms,
+            "window_traced_event_ms": window_traced_event_ms,
             "device_ms": device_ms,
             "kernel_launches": kernel_launches,
             "busy_share": busy_share,

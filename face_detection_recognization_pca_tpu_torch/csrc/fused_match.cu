@@ -60,12 +60,16 @@
 // crops @ m and the bound: B 32 D 9216 9.91 us (10.69; 1.08), B 64 D 9216
 // 10.09 us (11.49; 1.43), B 64 D 16384 11.09 us (13.21; 2.52), B 512
 // D 9216 16.05 us (27.90; 6.36, a share of 0.40), B 768 D 16384 32.70 us
-// (52.99; 16.30, 0.50).  The products alone take 4.8 us at B 64 and 27 us
-// at B 768; the finish's sums of 58 partials (4.5k SM cycles) and its
-// scores (3.8k) hold the small shapes back (fused_sweep.py --phases).
-// Any k >= 1 that the finish's shared memory holds (k <= 4,928), ragged B
-// and D, masks, ties and zero norms.  Nothing is padded in device memory but
-// m's prepared copy.
+// (52.99; 16.30, 0.50); in chip_smoke.py phase 3, B 256 D 9216 (the CLI
+// bench's shape) 13.38 us (17.83; 3.54, 0.26).  The products alone take
+// 4.8 us at B 64 and 27 us at B 768; the finish's sums of 58 partials
+// (4.5k SM cycles) and its scores (3.8k) hold the small shapes back
+// (fused_sweep.py --phases).
+// Any k >= 1, ragged B and D, masks, ties and zero norms.  The finish keeps
+// its crops' features in shared memory up to k = 4,928; above that it writes
+// them over its own rows of the partials, once they are added, and reads
+// them back from there.  Nothing is padded in device memory but m's
+// prepared copy.
 
 #include <algorithm>
 #include <cuda.h>
@@ -116,17 +120,19 @@ __host__ __device__ constexpr int finish_stage_floats(int batch) {
              ? batch * kFinishRows * kTileK
              : kFinishWarps * kGCols * kFinishRows;
 }
-// The finish kernel's shared memory for k features and `batch` partials.
-size_t finish_smem(int K, int batch) {
+// The finish kernel's shared memory for `batch` partials, and for k
+// features per crop where `feats` keeps them there.
+size_t finish_smem(int K, int batch, bool feats) {
   const size_t kp = (size_t)(K + kTileK - 1) / kTileK * kTileK;
-  return ((size_t)finish_stage_floats(batch) + kFinishRows * (kp + 4)) * sizeof(float);
+  return ((size_t)finish_stage_floats(batch) + (feats ? kFinishRows * (kp + 4) : 0)) *
+         sizeof(float);
 }
-// Partials staged at a time for k features: as many as fit, up to
-// kMaxBatch; 0 when none fits.
-int finish_batch(int K) {
+// Partials staged at a time: as many as fit, up to kMaxBatch; 0 when none
+// fits beside k features in shared memory.
+int finish_batch(int K, bool feats) {
   const size_t room = kSmemLimit - 8 * 1024;  // the static arrays
   for (int batch = kMaxBatch; batch >= 1; --batch)
-    if (finish_smem(K, batch) <= room) return batch;
+    if (finish_smem(K, batch, feats) <= room) return batch;
   return 0;
 }
 
@@ -378,10 +384,13 @@ fused_match_products(const __grid_constant__ CUtensorMap map_crops,
 // order.  Thread j scores column j of each block for every crop and keeps
 // each crop's first-occurrence best.  The first block's gallery
 // fragments, norms and mask, and the bias, are loaded before the wait for
-// the products, which they do not depend on.
-template <int kRows>
+// the products, which they do not depend on.  kSmemFeats keeps the crops'
+// features in shared memory; otherwise (k too large for it) chunk c's
+// features go over the block's first range of chunk c in `partial`, once
+// every range of c is added, and are read from there.
+template <int kRows, bool kSmemFeats>
 __global__ void __launch_bounds__(kFinishThreads)
-fused_match_finish(const float* __restrict__ partial, const float* __restrict__ bias,
+fused_match_finish(float* partial, const float* __restrict__ bias,
                    const float* __restrict__ gallery_t, const float* __restrict__ gnorm,
                    const float* __restrict__ mask, int* __restrict__ ids,
                    float* __restrict__ conf, int B, int K, int N, int tile_b, int splits,
@@ -392,7 +401,7 @@ fused_match_finish(const float* __restrict__ partial, const float* __restrict__ 
   const int k_chunks = (K + kTileK - 1) / kTileK, fp = k_chunks * kTileK + 4;
   extern __shared__ uint8_t smem_raw[];
   float* const sP = reinterpret_cast<float*>(smem_raw);  // partials, then the warps' dots
-  float* const sF = sP + finish_stage_floats(batch);     // [8][Kp + 4]
+  float* const sF = sP + finish_stage_floats(batch);     // [8][Kp + 4] where kSmemFeats
   __shared__ float s_fsq[kRows];
   __shared__ float s_fnorm[8];
   __shared__ float s_cand_best[kFinishWarps][kRows];
@@ -403,6 +412,12 @@ fused_match_finish(const float* __restrict__ partial, const float* __restrict__ 
   const int b0 = blockIdx.x * kRows, rows = min(kRows, B - b0);
   const int tile = b0 / tile_b, r_in = b0 % tile_b;
   const int row = tid >> 4, col = (tid & 15) * 4;  // this thread's float4 of the sums
+  // This block's rows of chunk c's partials: one run of `splits` ranges.
+  auto run_of = [&](int c) {
+    return partial +
+           ((size_t)(tile * k_chunks + c) * (tile_b / kRows) + r_in / kRows) * splits * kRows *
+               kTileK;
+  };
 
   // This thread's A fragments of chunk c and columns [n0, n0 + kGCols):
   // gallery_t at k = 64 c + 8 warp + t (and + 4), columns n0 + 16 i + g
@@ -434,7 +449,8 @@ fused_match_finish(const float* __restrict__ partial, const float* __restrict__ 
   if (one_block) load_gallery(0, 0);
   float4 bv = load_bias(0);
   // Rows kRows.. of the crops' features stay zero.
-  for (int e = kRows * fp + tid; e < 8 * fp; e += kFinishThreads) sF[e] = 0.f;
+  if (kSmemFeats)
+    for (int e = kRows * fp + tid; e < 8 * fp; e += kFinishThreads) sF[e] = 0.f;
   // ---- phase: wait ----
   asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the products are written
 
@@ -447,9 +463,8 @@ fused_match_finish(const float* __restrict__ partial, const float* __restrict__ 
       // lands and its splits are added, in ascending order.
       const int n = min(batch, splits - s0), per_group = (n + kGroups - 1) / kGroups;
       constexpr int kPerSplit = kRows * kTileK / 4;  // float4s
-      const float4* const src = reinterpret_cast<const float4*>(
-          partial + (((size_t)(tile * k_chunks + c) * (tile_b / kRows) + r_in / kRows) * splits +
-                     s0) * kRows * kTileK);
+      const float4* const src =
+          reinterpret_cast<const float4*>(run_of(c) + (size_t)s0 * kRows * kTileK);
 #pragma unroll
       for (int gi = 0; gi < kGroups; ++gi) {
         const int first = min(n, gi * per_group), end = min(n, first + per_group);
@@ -489,7 +504,10 @@ fused_match_finish(const float* __restrict__ partial, const float* __restrict__ 
       if (c > 0) bv = load_bias(c);
       float4 x = make_float4(sum.x + bv.x, sum.y + bv.y, sum.z + bv.z, sum.w + bv.w);
       if (row >= rows) x = make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(sF + row * fp + c * kTileK + col) = x;
+      // Every range of chunk c is added (the last __syncthreads above), so
+      // its first range's rows are free.
+      *reinterpret_cast<float4*>(kSmemFeats ? sF + row * fp + c * kTileK + col
+                                            : run_of(c) + row * kTileK + col) = x;
       float sq = x.x * x.x;
       sq = fmaf(x.y, x.y, sq);
       sq = fmaf(x.z, x.z, sq);
@@ -528,8 +546,14 @@ fused_match_finish(const float* __restrict__ partial, const float* __restrict__ 
         // B: features of crop g at this warp's k + t and k + t + 4.
         const int k = c * kTileK + 8 * warp + t;
         uint32_t bh[2], bl[2];
-        split_tf32(sF[g * fp + k], bh[0], bl[0]);
-        split_tf32(sF[g * fp + k + 4], bh[1], bl[1]);
+        if (kSmemFeats) {
+          split_tf32(sF[g * fp + k], bh[0], bl[0]);
+          split_tf32(sF[g * fp + k + 4], bh[1], bl[1]);
+        } else {
+          const float* const f = run_of(c) + g * kTileK + 8 * warp + t;
+          split_tf32(g < kRows ? f[0] : 0.f, bh[0], bl[0]);
+          split_tf32(g < kRows ? f[4] : 0.f, bh[1], bl[1]);
+        }
 #pragma unroll
         for (int i = 0; i < kTiles; ++i) {
           uint32_t ah[4], al[4];
@@ -699,8 +723,7 @@ int fused_match_launch(const float* crops, const float* m_hi, const float* m_lo,
       chunks_per_split < 1 || (splits - 1) * chunks_per_split >= n_chunks ||
       (finish_rows != 4 && finish_rows != 8) ||
       splits * chunks_per_split < n_chunks || Dp < D || Dp % 4 != 0 ||
-      (K + kTileK - 1) / kTileK > 65535 || (B + tile_b - 1) / tile_b > 65535 ||
-      finish_batch(K) < 1)
+      (K + kTileK - 1) / kTileK > 65535 || (B + tile_b - 1) / tile_b > 65535)
     return (int)cudaErrorInvalidValue;
   if (!aligned16(m_hi) || !aligned16(m_lo) || !aligned16(partial) ||
       (crops_tma && (!aligned16(crops) || D % 4 != 0)))
@@ -723,9 +746,13 @@ int fused_match_launch(const float* crops, const float* m_hi, const float* m_lo,
                                                   chunks_per_split, finish_rows, stream);
   if (err != cudaSuccess) return (int)err;
 
-  auto finish = finish_rows == 4 ? fused_match_finish<4> : fused_match_finish<8>;
-  const int batch = finish_batch(K);
-  const size_t smem = finish_smem(K, batch);
+  const bool feats = finish_batch(K, true) >= 1;  // the features fit in shared memory
+  auto finish = finish_rows == 4 ? (feats ? fused_match_finish<4, true>
+                                          : fused_match_finish<4, false>)
+                                 : (feats ? fused_match_finish<8, true>
+                                          : fused_match_finish<8, false>);
+  const int batch = finish_batch(K, feats);
+  const size_t smem = finish_smem(K, batch, feats);
   err = cudaFuncSetAttribute(finish, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t config = {};
@@ -738,8 +765,8 @@ int fused_match_launch(const float* crops, const float* m_hi, const float* m_lo,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, finish, (const float*)partial, bias, gallery_t, gnorm, mask,
-                           ids, conf, B, K, N, tile_b, splits, batch);
+  err = cudaLaunchKernelEx(&config, finish, partial, bias, gallery_t, gnorm, mask, ids, conf, B,
+                           K, N, tile_b, splits, batch);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -255,12 +255,12 @@ class Grid(NamedTuple):
 
 
 def _grid(b: int, d: int, k: int, sms: int = 132) -> Grid:
-    """About one block per SM: the D chunks cut into as many equal ranges
-    as the B tiles and k chunks leave room for, at most _MAX_SPLITS, none
-    empty."""
+    """At most one block per SM, unless the B tiles and k chunks alone are
+    more: the D chunks cut into as many equal ranges as they leave room
+    for, at most _MAX_SPLITS, at least one, none empty."""
     tile_b = 64 if b <= _SMALL_B else 128
     tiles, k_chunks, chunks = -(-b // tile_b), -(-k // _TILE_K), -(-d // _CHUNK)
-    want = max(1, min(_MAX_SPLITS, chunks, round(sms / (tiles * k_chunks))))
+    want = max(1, min(_MAX_SPLITS, chunks, sms // (tiles * k_chunks)))
     per = -(-chunks // want)
     return Grid(-(-chunks // per), k_chunks, tiles, tile_b, per,
                 _FINISH_ROWS[0] if b <= _SMALL_B else _FINISH_ROWS[1])

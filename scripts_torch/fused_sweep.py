@@ -3,9 +3,9 @@
 
     python3 scripts_torch/fused_sweep.py [--variants] [--phases] [--profile]
 
-With no option it times ``fused_match`` at the five shapes of the main
-paths (``chip_smoke.FUSED_SHAPES``: B 32, 64 and 512 at D 9216, B 64 at D
-16384, B 768 at D 16384; k 64, N 256, the data of ``chip_smoke.py``'s
+With no option it times ``fused_match`` at the six shapes of the main
+paths (``chip_smoke.FUSED_SHAPES``: B 32, 64, 256 and 512 at D 9216, B 64
+and B 768 at D 16384; k 64, N 256, the data of ``chip_smoke.py``'s
 ``_match_case``)
 beside its plain version and ``crops @ m``, taken in the order plain,
 kernel, library, library, kernel, plain, device-only (CUDA events around

@@ -177,11 +177,13 @@ def test_fused_match_rejects_bad_args(field, bad, exc):
         tfm.fused_match(**args)
 
 
-def test_fused_match_rejects_k_beyond_kernel_limit():
+@pytest.mark.parametrize("k", [300, 5000])
+def test_fused_match_rejects_k_beyond_kernel_limit(k):
     """The kernel walks k in chunks, so its only limit is k >= 1: k = 300
-    (past one 256-feature chunk) is taken and equals the plain version,
+    (several 64-feature chunks) and k = 5,000 (past the features the
+    finish keeps in shared memory) are taken and equal the plain version,
     and an empty k is refused."""
-    args = _good_args(k=300)
+    args = _good_args(k=k)
     ids, conf = tfm.fused_match(**args)
     lin = tfm.LinearizedModel(args["m"], args["bias"], args["gallery_t"], args["gnorm"],
                               torch.zeros(12, dtype=torch.int32), (1, 30))
@@ -272,13 +274,14 @@ def test_3xtf32_projection_keeps_float32_parity_where_tf32_does_not():
     np.testing.assert_allclose(cos3.max(axis=1), np.asarray(conf_j), rtol=0, atol=CONF_ATOL)
 
 
-# The five shapes of the main paths (k 64, N 256) with the plans the
+# The six shapes of the main paths (k 64, N 256) with the plans the
 # wrapper gives them on a card of 132 SMs, then ragged cases.
 @pytest.mark.parametrize(
     "b,d,k,tma,plan",
     [(32, 9216, 64, True, (58, 1, 1, 64, 5, 4)), (64, 9216, 64, True, (58, 1, 1, 64, 5, 4)),
      (64, 16384, 64, True, (64, 1, 1, 64, 8, 4)), (512, 9216, 64, True, (32, 1, 4, 128, 9, 8)),
-     (768, 16384, 64, True, (22, 1, 6, 128, 24, 8)), (130, 9216, 64, True, None),
+     (768, 16384, 64, True, (22, 1, 6, 128, 24, 8)), (256, 9216, 64, True, (58, 1, 2, 128, 5, 8)),
+     (130, 9216, 64, True, None), (6, 1024, 5000, True, None),
      (16, 4096, 300, True, None), (9, 2048, 7, True, None), (5, 4099, 8, False, None),
      (4, 576, 16, True, None), (1, 7, 1, False, None)],
 )

@@ -30,7 +30,8 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,d,k,n,masked", [(64, 9216, 64, 256, 0), (5, 4099, 8, 33, 3),
                                             (512, 9216, 64, 256, 0), (1, 9216, 64, 256, 0),
-                                            (768, 16384, 64, 256, 0), (32, 9216, 64, 256, 0)])
+                                            (768, 16384, 64, 256, 0), (32, 9216, 64, 256, 0),
+                                            (256, 9216, 64, 256, 0)])
 def test_kernel_matches_plain_on_card(cuda_device, b, d, k, n, masked):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     m = torch.randn(d, k, generator=g, device=cuda_device) / d ** 0.5
@@ -74,6 +75,23 @@ def test_kernel_takes_k_300(cuda_device):
     ids_p, conf_p = tfm.recognize_linearized(lin, crops)
     torch.cuda.synchronize()
     assert torch.equal(ids_k, ids_p) and torch.equal(ids_k.long(), near)
+    assert float((conf_k - conf_p).abs().max()) <= CONF_ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,d,k,n", [(6, 1024, 5000, 300), (130, 520, 4993, 257)])
+def test_kernel_takes_k_beyond_what_the_finish_keeps_in_shared_memory(cuda_device, b, d, k, n):
+    """Above k = 4,928 the finish keeps the crops' features in its rows of
+    the partials instead of shared memory; ids equal plain's, conf within
+    CONF_ATOL, at 4 and 8 crops per finishing block."""
+    crops, m, bias, gallery_t, gnorm = _fused_case(cuda_device, b, d, k, n, seed=3)[:5]
+    ids_k, conf_k = tfm.fused_match(crops, m, bias, gallery_t, gnorm)
+    lin = tfm.LinearizedModel(m, bias, gallery_t, gnorm, torch.zeros(n, dtype=torch.int32),
+                              (1, d))
+    ids_p, conf_p = tfm.recognize_linearized(lin, crops)
+    torch.cuda.synchronize()
+    assert torch.equal(ids_k, ids_p)
+    assert torch.equal(ids_k.long(), torch.arange(b, device=cuda_device) % n)
     assert float((conf_k - conf_p).abs().max()) <= CONF_ATOL
 
 
@@ -356,10 +374,11 @@ def test_headline_on_card_under_a_tf32_caller(cuda_device):
     assert after["matmul_allow_tf32"] is True
     assert detail["self_check"] == "ok" and result["value"] > 0
     assert result["unit"] == "frames/s/card" and detail["device"] != "cpu"
-    # first, warm-up, 3 windows, 3 profiled windows, trace
-    assert detail["fused_match_launches"] == 2 + 3 * 2 + 3 * 2 + 6
+    # first, warm-up, 3 windows, 3 profiled windows (which also give device_ms)
+    assert detail["fused_match_launches"] == 2 + 3 * 2 + 3 * 2
     assert detail["device_ms"] is None or detail["busy_share"] > 0
-    assert len(detail["window_device_ms"]) == len(detail["window_traced_ms"]) == 3
+    assert (len(detail["window_device_ms"]) == len(detail["window_traced_ms"])
+            == len(detail["window_traced_event_ms"]) == 3)
 
 
 @pytest.mark.gpu

@@ -201,13 +201,15 @@ def test_headline_runs_on_the_card_unless_told(monkeypatch):
 def test_headline_reports_every_window_and_no_card_clock_on_the_cpu():
     """``window_step_ms`` holds the 3 windows' ms per dispatch, the best of
     which is ``step_ms``; ``event_step_ms`` is the card's clock, and
-    ``window_device_ms`` / ``window_traced_ms`` the profiled windows' kernel
-    and host times, all ``None`` on the CPU."""
+    ``window_device_ms`` / ``window_traced_ms`` / ``window_traced_event_ms``
+    the profiled windows' kernel, host and CUDA-event times, all ``None`` on
+    the CPU."""
     detail = _small_headline(with_train=False)["detail"]
     assert len(detail["window_step_ms"]) == 3 and all(v > 0 for v in detail["window_step_ms"])
     assert detail["step_ms"] == min(detail["window_step_ms"])
     assert detail["event_step_ms"] is None
     assert detail["window_device_ms"] is None and detail["window_traced_ms"] is None
+    assert detail["window_traced_event_ms"] is None
 
 
 G256_SIZE = (300, 320)  # the smallest frames that hold a 256 x 256 window, rounded up
