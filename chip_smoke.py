@@ -337,7 +337,8 @@ from face_detection_recognization_pca_tpu_torch.pipeline import cli
 from face_detection_recognization_pca_tpu_torch.pipeline.eval_app import evaluate_model
 from face_detection_recognization_pca_tpu_torch.pipeline.run_pipeline import run_pipeline_frames
 from face_detection_recognization_pca_tpu_torch.pipeline.scan_app import scan_frames_enhanced
-from face_detection_recognization_pca_tpu_torch.utils.profiling import StageTimer, device_trace
+from face_detection_recognization_pca_tpu_torch.utils import profiling
+from face_detection_recognization_pca_tpu_torch.utils.profiling import device_trace
 
 CONF_ATOL = 1e-5  # float32 sums in another order than cuBLAS's; cosines ~1
 CONF_ATOL_BF16 = 2e-3  # bf16 operands, against plain with the same rounding
@@ -401,6 +402,23 @@ KERNELS = {
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def _traced(run):
+    """``run()`` with the port's tracer on, from an empty record; its result."""
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        return run()
+    finally:
+        profiling.enable(False)
+
+
+def _span_seconds(prefix: str) -> dict:
+    """Host seconds per span name that starts with ``prefix``, over the
+    tracer's record since :func:`_traced` began."""
+    return {name: round(total, 4) for name, (_, total, _) in profiling.snapshot()["totals"].items()
+            if name.startswith(prefix)}
 
 
 def bound(nbytes: float, flops: float, kind: str) -> dict:
@@ -1260,8 +1278,8 @@ def phase_multiscan(dev, card: str) -> tuple:
     t0 = time.perf_counter()
     records = scan_batches_multimodel(batches(), stack, bank)
     seconds = time.perf_counter() - t0
-    timings = {}
-    timed = scan_batches_multimodel(batches(), stack, bank, timings=timings)
+    timed = _traced(lambda: scan_batches_multimodel(batches(), stack, bank))
+    timings = _span_seconds("scan.")
     t0 = time.perf_counter()
     per_frame = scan_frames_multimodel(iter(frames), stack, bank)
     per_frame_seconds = time.perf_counter() - t0
@@ -1284,8 +1302,8 @@ def phase_multiscan(dev, card: str) -> tuple:
           f"{MULTISCAN_FRAMES / seconds} frames/s batched with the host-to-device copy of every "
           f"batch inside ({seconds / (MULTISCAN_FRAMES / MULTISCAN_BATCH) * 1e3} ms per batch, "
           f"host clock), {MULTISCAN_FRAMES / per_frame_seconds} frames/s per frame; seconds per "
-          f"stage over the run, the card waited for after each: {json.dumps(timings)}; card "
-          f"{card}")
+          f"stage span over a traced run, host time (the enqueue plus any wait inside the "
+          f"stage): {json.dumps(timings)}; card {card}")
 
     # The admitted crops of each person through the fused recognizer of that
     # person's model: D = 128 * 128 = 16384, a shape no earlier path gives.
@@ -1609,10 +1627,10 @@ def phase_enhanced(dev, card: str) -> None:
     rows = {b: tuple(br.gallery.shape) for b, br in model.branches.items()}
     check(all(r[0] == 7 * len(crops) == 1078 for r in rows.values()), f"gallery rows {rows}")
 
-    timer = StageTimer()
     t2 = time.perf_counter()
-    records = scan_frames_enhanced(iter(frames), model, detector=det, timer=timer)
+    records = _traced(lambda: scan_frames_enhanced(iter(frames), model, detector=det))
     scan_s = time.perf_counter() - t2
+    stage_s = _span_seconds("scan.")
     names = {v: k for k, v in person_ids.items()}
     check([r["frame_number"] for r in records] == list(range(ENHANCED_SCAN)),
           f"one record per frame: {[r['frame_number'] for r in records]}")
@@ -1689,8 +1707,8 @@ def phase_enhanced(dev, card: str) -> None:
           f"{enhanced.PROFILE_THRESHOLD}, frontal {enhanced.FRONTAL_THRESHOLD}), max|dconf| "
           f"{probe_err:.3g} against the CPU copy; the pickle round trip "
           f"gives equal arrays; {ENHANCED_SCAN / scan_s} frames/s with the copies inside (host "
-          f"clock); seconds per stage "
-          f"{json.dumps({k: round(v, 4) for k, v in timer.totals.items()})}; phase "
+          f"clock, tracer on); seconds per stage span, host time (the enqueue plus any wait "
+          f"inside the stage): {json.dumps(stage_s)}; phase "
           f"{time.perf_counter() - t0:.2f} s; card {card}")
 
 

@@ -53,6 +53,7 @@ import torch
 
 from face_detection_recognization_pca_tpu_torch.device import exact_float32, resolve_device
 from face_detection_recognization_pca_tpu_torch.ops.resize import resize_bilinear
+from face_detection_recognization_pca_tpu_torch.utils.profiling import count, span
 
 # OpenCV's file, verbatim, as package data: where OpenCV is not installed.
 PACKAGED_CASCADE = os.path.join(
@@ -396,89 +397,95 @@ class HaarDetector:
         norms = torch.empty(int(win_starts[-1]), dtype=torch.float64, device=dev)
         passed = torch.empty(int(win_starts[-1]), dtype=torch.bool, device=dev)
         handle["windows"] = int(win_starts[-1]) // nb
+        count("haar.windows", int(win_starts[-1]))
         area = float((wh - 2) * (ww - 2))
         dense = self._group(0, self.dense_stages)
 
         for li, (_, sh, sw, step) in enumerate(levels):
             ny, nx = grids[li]
-            scaled = frames if (sh, sw) == (h, w) else resize_bilinear(frames, (sw, sh))
-            f = scaled.to(torch.float64)
             h1, w1 = sh + 1, sw + 1
-            ii = integrals[int_starts[li] : int_starts[li + 1]].view(nb, h1, w1)
-            ii[:, 0, :] = 0.0
-            ii[:, :, 0] = 0.0
-            ii[:, 1:, 1:] = torch.cumsum(torch.cumsum(f, dim=1), dim=2)
-            sq = torch.zeros((nb, h1, w1), dtype=torch.float64, device=dev)
-            sq[:, 1:, 1:] = torch.cumsum(torch.cumsum(f * f, dim=1), dim=2)
+            with span("haar.integral"):
+                scaled = frames if (sh, sw) == (h, w) else resize_bilinear(frames, (sw, sh))
+                f = scaled.to(torch.float64)
+                ii = integrals[int_starts[li] : int_starts[li + 1]].view(nb, h1, w1)
+                ii[:, 0, :] = 0.0
+                ii[:, :, 0] = 0.0
+                ii[:, 1:, 1:] = torch.cumsum(torch.cumsum(f, dim=1), dim=2)
+                sq = torch.zeros((nb, h1, w1), dtype=torch.float64, device=dev)
+                sq[:, 1:, 1:] = torch.cumsum(torch.cumsum(f * f, dim=1), dim=2)
 
-            def grid_sum(t, y, x, rh, rw):
-                def sl(dy, dx):
-                    return t[
-                        :,
-                        y + dy : y + dy + (ny - 1) * step + 1 : step,
-                        x + dx : x + dx + (nx - 1) * step + 1 : step,
-                    ]
+                def grid_sum(t, y, x, rh, rw):
+                    def sl(dy, dx):
+                        return t[
+                            :,
+                            y + dy : y + dy + (ny - 1) * step + 1 : step,
+                            x + dx : x + dx + (nx - 1) * step + 1 : step,
+                        ]
 
-                return sl(rh, rw) - sl(rh, 0) - sl(0, rw) + sl(0, 0)
+                    return sl(rh, rw) - sl(rh, 0) - sl(0, rw) + sl(0, 0)
 
-            s1 = grid_sum(ii, 1, 1, wh - 2, ww - 2)
-            s2 = grid_sum(sq, 1, 1, wh - 2, ww - 2)
-            nf2 = area * s2 - s1 * s1
-            nf = torch.where(nf2 > 0, torch.sqrt(nf2.clamp_min(0.0)), 1.0)
-            norms[win_starts[li] : win_starts[li + 1]].view(nb, ny, nx).copy_(nf)
+                s1 = grid_sum(ii, 1, 1, wh - 2, ww - 2)
+                s2 = grid_sum(sq, 1, 1, wh - 2, ww - 2)
+                nf2 = area * s2 - s1 * s1
+                nf = torch.where(nf2 > 0, torch.sqrt(nf2.clamp_min(0.0)), 1.0)
+                norms[win_starts[li] : win_starts[li + 1]].view(nb, ny, nx).copy_(nf)
 
-            # Window (b, i, j)'s 25 x 25 integral patch, as a view.
-            patches = ii.as_strided(
-                (nb, ny, nx, side, side), (h1 * w1, step * w1, step, w1, 1)
-            )
-            ok = passed[win_starts[li] : win_starts[li + 1]].view(nb, ny, nx)
-            per = max(1, _MAX_BLOCK_VALUES // (ny * nx * len(dense.cy)))
-            for b0 in range(0, nb, per):
-                corners = patches[b0 : b0 + per, :, :, dense.cy, dense.cx]
-                ok[b0 : b0 + per] = _stages_pass(corners, nf[b0 : b0 + per], dense)
+            with span("haar.dense"):
+                # Window (b, i, j)'s 25 x 25 integral patch, as a view.
+                patches = ii.as_strided(
+                    (nb, ny, nx, side, side), (h1 * w1, step * w1, step, w1, 1)
+                )
+                ok = passed[win_starts[li] : win_starts[li + 1]].view(nb, ny, nx)
+                per = max(1, _MAX_BLOCK_VALUES // (ny * nx * len(dense.cy)))
+                for b0 in range(0, nb, per):
+                    corners = patches[b0 : b0 + per, :, :, dense.cy, dense.cx]
+                    ok[b0 : b0 + per] = _stages_pass(corners, nf[b0 : b0 + per], dense)
 
-        # Compaction: the candidates of all levels, as indices into the
-        # window buffers (sorted, so level, frame, y, x ascending).
-        idx = torch.nonzero(passed).squeeze(1)
-        t_win_starts = torch.from_numpy(win_starts).to(dev)
-        t_int_starts = torch.from_numpy(int_starts[:-1].copy()).to(dev)
-        t_ny = torch.tensor([g[0] for g in grids], dtype=torch.int64, device=dev)
-        t_nx = torch.tensor([g[1] for g in grids], dtype=torch.int64, device=dev)
-        t_step = torch.tensor([lv[3] for lv in levels], dtype=torch.int64, device=dev)
-        t_h1 = torch.tensor([lv[1] + 1 for lv in levels], dtype=torch.int64, device=dev)
-        t_w1 = torch.tensor([lv[2] + 1 for lv in levels], dtype=torch.int64, device=dev)
-        level = torch.bucketize(idx, t_win_starts[1:], right=True)
-        rest = idx - t_win_starts[level]
-        per_frame = t_ny[level] * t_nx[level]
-        frame = rest // per_frame
-        rest = rest - frame * per_frame
-        y = (rest // t_nx[level]) * t_step[level]
-        x = (rest % t_nx[level]) * t_step[level]
-        # Where each candidate's patch starts in the flat integral buffer,
-        # and the row stride of its level's integral there.
-        w1 = t_w1[level]
-        base = t_int_starts[level] + (frame * t_h1[level] + y) * w1 + x
-        nf = norms[idx]
-        rows = torch.stack([frame, level, y, x], dim=1).to(torch.int32)
-        handle["survivors"].append((self.dense_stages, int(idx.numel())))
+        with span("haar.candidates"):
+            # Compaction: the candidates of all levels, as indices into the
+            # window buffers (sorted, so level, frame, y, x ascending).
+            idx = torch.nonzero(passed).squeeze(1)
+            t_win_starts = torch.from_numpy(win_starts).to(dev)
+            t_int_starts = torch.from_numpy(int_starts[:-1].copy()).to(dev)
+            t_ny = torch.tensor([g[0] for g in grids], dtype=torch.int64, device=dev)
+            t_nx = torch.tensor([g[1] for g in grids], dtype=torch.int64, device=dev)
+            t_step = torch.tensor([lv[3] for lv in levels], dtype=torch.int64, device=dev)
+            t_h1 = torch.tensor([lv[1] + 1 for lv in levels], dtype=torch.int64, device=dev)
+            t_w1 = torch.tensor([lv[2] + 1 for lv in levels], dtype=torch.int64, device=dev)
+            level = torch.bucketize(idx, t_win_starts[1:], right=True)
+            rest = idx - t_win_starts[level]
+            per_frame = t_ny[level] * t_nx[level]
+            frame = rest // per_frame
+            rest = rest - frame * per_frame
+            y = (rest // t_nx[level]) * t_step[level]
+            x = (rest % t_nx[level]) * t_step[level]
+            # Where each candidate's patch starts in the flat integral buffer,
+            # and the row stride of its level's integral there.
+            w1 = t_w1[level]
+            base = t_int_starts[level] + (frame * t_h1[level] + y) * w1 + x
+            nf = norms[idx]
+            rows = torch.stack([frame, level, y, x], dim=1).to(torch.int32)
+            handle["survivors"].append((self.dense_stages, int(idx.numel())))
+            count(f"haar.candidates.{self.dense_stages}", int(idx.numel()))
 
-        n_stages = self.cascade.n_stages
-        bounds = sorted({self.dense_stages, n_stages}
-                        | {s for s in _COMPACT_AT if self.dense_stages < s < n_stages})
-        for lo, hi in zip(bounds[:-1], bounds[1:]):
-            if rows.shape[0] == 0:
-                break
-            g = self._group(lo, hi)
-            n = rows.shape[0]
-            ok = torch.empty(n, dtype=torch.bool, device=dev)
-            per = max(1, _MAX_BLOCK_VALUES // len(g.cy))
-            for c0 in range(0, n, per):
-                sel = slice(c0, c0 + per)
-                corners = integrals[base[sel, None] + g.cy * w1[sel, None] + g.cx]
-                ok[sel] = _stages_pass(corners, nf[sel], g)
-            keep = torch.nonzero(ok).squeeze(1)
-            rows, base, w1, nf = rows[keep], base[keep], w1[keep], nf[keep]
-            handle["survivors"].append((hi, int(keep.numel())))
+            n_stages = self.cascade.n_stages
+            bounds = sorted({self.dense_stages, n_stages}
+                            | {s for s in _COMPACT_AT if self.dense_stages < s < n_stages})
+            for lo, hi in zip(bounds[:-1], bounds[1:]):
+                if rows.shape[0] == 0:
+                    break
+                g = self._group(lo, hi)
+                n = rows.shape[0]
+                ok = torch.empty(n, dtype=torch.bool, device=dev)
+                per = max(1, _MAX_BLOCK_VALUES // len(g.cy))
+                for c0 in range(0, n, per):
+                    sel = slice(c0, c0 + per)
+                    corners = integrals[base[sel, None] + g.cy * w1[sel, None] + g.cx]
+                    ok[sel] = _stages_pass(corners, nf[sel], g)
+                keep = torch.nonzero(ok).squeeze(1)
+                rows, base, w1, nf = rows[keep], base[keep], w1[keep], nf[keep]
+                handle["survivors"].append((hi, int(keep.numel())))
+                count(f"haar.candidates.{hi}", int(keep.numel()))
         return rows
 
     def detect_finish(self, handle: dict) -> List[List[Box]]:
@@ -487,23 +494,25 @@ class HaarDetector:
         frame."""
         nb = handle["frames"]
         raw: List[List[Box]] = [[] for _ in range(nb)]
-        if handle["rows"] is not None:
-            if handle["ready"] is not None:
+        if handle["ready"] is not None:
+            with span("haar.download"):
                 handle["ready"].synchronize()
-            rows = handle["rows"].numpy()
-            wh, ww = self.cascade.window_size
-            factors = np.array([lv[0] for lv in handle["levels"]], dtype=np.float64)
-            f = factors[rows[:, 1]]
-            # np.rint rounds half to even, as round() does.
-            xs = np.rint(rows[:, 3].astype(np.float64) * f).astype(int)
-            ys = np.rint(rows[:, 2].astype(np.float64) * f).astype(int)
-            ws = np.rint(ww * f).astype(int)
-            hs = np.rint(wh * f).astype(int)
-            boxes = np.stack([xs, ys, ws, hs], axis=1)
-            for b in range(nb):
-                # Boolean selection keeps the rows' order: level, y, x.
-                raw[b] = [tuple(r) for r in boxes[rows[:, 0] == b].tolist()]
-        return [group_rectangles(r, handle["min_neighbors"], eps=0.2) for r in raw]
+        with span("haar.group"):
+            if handle["rows"] is not None:
+                rows = handle["rows"].numpy()
+                wh, ww = self.cascade.window_size
+                factors = np.array([lv[0] for lv in handle["levels"]], dtype=np.float64)
+                f = factors[rows[:, 1]]
+                # np.rint rounds half to even, as round() does.
+                xs = np.rint(rows[:, 3].astype(np.float64) * f).astype(int)
+                ys = np.rint(rows[:, 2].astype(np.float64) * f).astype(int)
+                ws = np.rint(ww * f).astype(int)
+                hs = np.rint(wh * f).astype(int)
+                boxes = np.stack([xs, ys, ws, hs], axis=1)
+                for b in range(nb):
+                    # Boolean selection keeps the rows' order: level, y, x.
+                    raw[b] = [tuple(r) for r in boxes[rows[:, 0] == b].tolist()]
+            return [group_rectangles(r, handle["min_neighbors"], eps=0.2) for r in raw]
 
 
 # ---------------------------------------------------------------------------
@@ -532,7 +541,9 @@ def group_rectangles(
 
     native = group_rectangles_native(rects, group_threshold, eps)
     if native is not None:
+        count("haar.group.native")
         return native
+    count("haar.group.numpy")
     return _group_rectangles_py(rects, group_threshold, eps)
 
 

@@ -51,6 +51,7 @@ from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
 )
 from face_detection_recognization_pca_tpu_torch.parallel.mesh import Mesh
 from face_detection_recognization_pca_tpu_torch.parallel.sharding import _gather_chunks
+from face_detection_recognization_pca_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -121,36 +122,40 @@ def locate_and_match(windows: torch.Tensor, mean: torch.Tensor, ops: StepOperand
     s = windows.shape[0]
     win, tpl, band = ops.win, ops.tpl, ops.band
     out_n = win - tpl + 1
-    windows_c = windows - mean
+    with span("multistream.numerator"):
+        windows_c = windows - mean
+        num = ops.corr(windows_c)
 
-    num = ops.corr(windows_c)
-    s1 = band.T @ windows_c @ band
-    s2 = band.T @ (windows_c * windows_c) @ band
-    n = tpl * tpl
-    var_n = torch.clamp(s2 - s1 * s1 / n, min=0.0)
-    denom = torch.sqrt(ops.t_energy * var_n)
-    safe = var_n > n * 1.0
-    scores = torch.clamp(
-        torch.where(safe, num / torch.where(safe, denom, torch.ones_like(denom)), 0.0),
-        -1.0, 1.0,
-    )
-    flat = scores.reshape(s, -1)
-    loc = torch.argmax(flat, dim=1)  # first maximum
-    tm_conf = torch.gather(flat, 1, loc[:, None])[:, 0]
-    loc = loc.to(torch.int32)
-    ly = torch.div(loc, out_n, rounding_mode="floor")
-    lx = loc - ly * out_n
+    with span("multistream.statistics"):
+        s1 = band.T @ windows_c @ band
+        s2 = band.T @ (windows_c * windows_c) @ band
+        n = tpl * tpl
+        var_n = torch.clamp(s2 - s1 * s1 / n, min=0.0)
+        denom = torch.sqrt(ops.t_energy * var_n)
+        safe = var_n > n * 1.0
+        scores = torch.clamp(
+            torch.where(safe, num / torch.where(safe, denom, torch.ones_like(denom)), 0.0),
+            -1.0, 1.0,
+        )
+        flat = scores.reshape(s, -1)
+        loc = torch.argmax(flat, dim=1)  # first maximum
+        tm_conf = torch.gather(flat, 1, loc[:, None])[:, 0]
+        loc = loc.to(torch.int32)
+        ly = torch.div(loc, out_n, rounding_mode="floor")
+        lx = loc - ly * out_n
 
-    ar_tpl = torch.arange(tpl, device=windows.device, dtype=torch.int32)
-    streams = torch.arange(s, device=windows.device)[:, None, None]
-    crop_rows = (ly[:, None] + ar_tpl)[:, :, None]
-    crop_cols = (lx[:, None] + ar_tpl)[:, None, :]
-    crops = windows[streams, crop_rows, crop_cols]  # (S, tpl, tpl)
+    with span("multistream.crops"):
+        ar_tpl = torch.arange(tpl, device=windows.device, dtype=torch.int32)
+        streams = torch.arange(s, device=windows.device)[:, None, None]
+        crop_rows = (ly[:, None] + ar_tpl)[:, :, None]
+        crop_cols = (lx[:, None] + ar_tpl)[:, None, :]
+        crops = windows[streams, crop_rows, crop_cols]  # (S, tpl, tpl)
     lin = ops.lin
-    ids, conf = fused_match(
-        crops.reshape(s, -1), lin.m, lin.bias, lin.gallery_t, lin.gallery_norm,
-        m_split=lin.m_split,
-    )
+    with span("multistream.match"):
+        ids, conf = fused_match(
+            crops.reshape(s, -1), lin.m, lin.bias, lin.gallery_t, lin.gallery_norm,
+            m_split=lin.m_split,
+        )
     return ids, conf, tm_conf, ly, lx
 
 
@@ -226,32 +231,38 @@ class MultiStreamRecognizer:
         }
 
     def _step(self, frames: torch.Tensor, origin: torch.Tensor):
-        frame_hw = frames.shape[1:]
-        if self.mesh is None:
-            windows = slice_windows(frames, origin, self.win)
-            return _track(windows, windows.mean(), origin, frame_hw, self._ops[self.device])
-        n = len(self._shards)
-        if frames.shape[0] % n:
-            raise ValueError(f"{frames.shape[0]} streams not divisible by data axis {n}")
-        frame_chunks, origin_chunks = torch.chunk(frames, n), torch.chunk(origin, n)
-        origins = {i: origin_chunks[i].to(self._shards[i]) for i in self._mine}
-        windows = {i: slice_windows(frame_chunks[i].to(self._shards[i]), origins[i], self.win)
-                   for i in self._mine}
-        # The mean of every window of the step, taken as without a mesh.
-        mean = self._join({i: w.to(self.device) for i, w in windows.items()}).mean()
-        # Each chunk's outputs as int32 columns, the float32 scores bit-cast,
-        # so every value arrives as its owner computed it.
-        packed = {}
-        for i in self._mine:
-            ids, conf, tm_conf, bx, by, new_origin = _track(
-                windows[i], mean.to(self._shards[i]), origins[i], frame_hw,
-                self._ops[self._shards[i]])
-            scores = torch.stack([conf, tm_conf], 1).view(torch.int32)
-            packed[i] = torch.cat([torch.stack([ids, bx, by], 1), new_origin, scores],
-                                  1).to(self.device)
-        cols = self._join(packed).T.contiguous()
-        conf, tm_conf = cols[5:].view(torch.float32)
-        return cols[0], conf, tm_conf, cols[1], cols[2], cols[3:5].T.contiguous()
+        """One frame of every stream, inside the span ``multistream.step``."""
+        with span("multistream.step"):
+            frame_hw = frames.shape[1:]
+            if self.mesh is None:
+                with span("multistream.windows"):
+                    windows = slice_windows(frames, origin, self.win)
+                    mean = windows.mean()
+                return _track(windows, mean, origin, frame_hw, self._ops[self.device])
+            n = len(self._shards)
+            if frames.shape[0] % n:
+                raise ValueError(f"{frames.shape[0]} streams not divisible by data axis {n}")
+            with span("multistream.windows"):
+                frame_chunks, origin_chunks = torch.chunk(frames, n), torch.chunk(origin, n)
+                origins = {i: origin_chunks[i].to(self._shards[i]) for i in self._mine}
+                windows = {i: slice_windows(frame_chunks[i].to(self._shards[i]), origins[i],
+                                            self.win)
+                           for i in self._mine}
+                # The mean of every window of the step, taken as without a mesh.
+                mean = self._join({i: w.to(self.device) for i, w in windows.items()}).mean()
+            # Each chunk's outputs as int32 columns, the float32 scores bit-cast,
+            # so every value arrives as its owner computed it.
+            packed = {}
+            for i in self._mine:
+                ids, conf, tm_conf, bx, by, new_origin = _track(
+                    windows[i], mean.to(self._shards[i]), origins[i], frame_hw,
+                    self._ops[self._shards[i]])
+                scores = torch.stack([conf, tm_conf], 1).view(torch.int32)
+                packed[i] = torch.cat([torch.stack([ids, bx, by], 1), new_origin, scores],
+                                      1).to(self.device)
+            cols = self._join(packed).T.contiguous()
+            conf, tm_conf = cols[5:].view(torch.float32)
+            return cols[0], conf, tm_conf, cols[1], cols[2], cols[3:5].T.contiguous()
 
     def _join(self, chunks: Dict[int, torch.Tensor]) -> torch.Tensor:
         """Every chunk of the step on the first device, in chunk order: this

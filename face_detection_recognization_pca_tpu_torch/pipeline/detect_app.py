@@ -44,6 +44,7 @@ from face_detection_recognization_pca_tpu_torch.io.video import VideoMeta, Video
 from face_detection_recognization_pca_tpu_torch.ops.color import bgr_to_gray_exact
 from face_detection_recognization_pca_tpu_torch.ops.resize import resize_bilinear_u8_exact
 from face_detection_recognization_pca_tpu_torch.utils.logging import get_logger
+from face_detection_recognization_pca_tpu_torch.utils.profiling import span
 
 log = get_logger("fdrp.detect")
 
@@ -67,7 +68,8 @@ def haar_batches(
     pending: List[np.ndarray] = []
 
     def flush():
-        grays = bgr_to_gray_exact(torch.from_numpy(np.stack(pending)).to(detector.device))
+        with span("scan.upload"):
+            grays = bgr_to_gray_exact(torch.from_numpy(np.stack(pending)).to(detector.device))
         faces = detector.detect_multi_scale_batch(
             grays, cfg.scale_factor, cfg.min_neighbors, cfg.min_size
         )

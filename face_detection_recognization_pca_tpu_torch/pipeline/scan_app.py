@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from datetime import datetime
 from typing import Dict, Iterable, List, Optional
 
@@ -83,7 +82,7 @@ from face_detection_recognization_pca_tpu_torch.recognize.fusion import (
 )
 from face_detection_recognization_pca_tpu_torch.utils import annotate
 from face_detection_recognization_pca_tpu_torch.utils.logging import Counters, get_logger
-from face_detection_recognization_pca_tpu_torch.utils.profiling import StageTimer
+from face_detection_recognization_pca_tpu_torch.utils.profiling import count, span
 
 log = get_logger("fdrp.scan")
 
@@ -381,7 +380,6 @@ def scan_batches_multimodel(
     config: Optional[PipelineConfig] = None,
     writer=None,
     max_frames: Optional[int] = None,
-    timings: Optional[Dict[str, float]] = None,
 ) -> List[dict]:
     """The batched v4 multi-model scan over an iterator of frame batches
     (each ``(B, H, W, 3)`` uint8 BGR, a stack or a list of frames), on
@@ -394,28 +392,14 @@ def scan_batches_multimodel(
     grouped by box size (the fused detector emits few distinct sizes).
     Arbitration, fusion, overlay and the record schema are those of
     :func:`scan_frames_multimodel`.  With a ``writer`` the overlay is
-    drawn (with OpenCV) and every frame written.
-
-    ``timings``, when given, receives the seconds spent per stage
-    (``upload_gray``, ``detect_device``, ``detect_select``, ``verify``,
-    ``fuse``); the device is then waited for after each stage, which an
-    untimed run does not do."""
+    drawn (with OpenCV) and every frame written.  Its stages are the spans
+    ``scan.upload_gray``, ``scan.detect_device``, ``scan.detect_select``,
+    ``scan.verify`` and ``scan.fuse`` (:mod:`..utils.profiling`)."""
     cfg = config or PipelineConfig()
     device = bank.device
     recognizer = MultiModelRecognizer(stack, cfg.recognize)
     detector = TemplateDetector(bank, cfg.detect)
     results: List[dict] = []
-    clock = [time.perf_counter()]
-
-    def lap(stage: str) -> None:
-        if timings is None:
-            return
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        timings[stage] = timings.get(stage, 0.0) + now - clock[0]
-        clock[0] = now
-
     frame_no = 0
     for batch in batches:
         if max_frames is not None:
@@ -423,59 +407,61 @@ def scan_batches_multimodel(
                 break
             batch = batch[: max_frames - frame_no]
         host = batch if isinstance(batch, np.ndarray) else np.stack(batch)
-        clock[0] = time.perf_counter()
-        frames = torch.from_numpy(host).to(device)
-        grays = bgr_to_gray_exact(frames)
-        lap("upload_gray")
-        scale_meta, packed = detector.detect_fused_device(grays)
-        lap("detect_device")
-        dets_per_frame = detector.detect_fused_finish(scale_meta, packed, len(host))
-        dets_per_frame = [d[: cfg.detect.max_detections] for d in dets_per_frame]
-        lap("detect_select")
-        # Gather every crop of the batch, grouped by box size -> one
-        # recognize_batch call per distinct size.
-        jobs = [(bi, d) for bi, dets in enumerate(dets_per_frame) for d in dets]
-        pca: dict = {}
-        by_size: dict = {}
-        for ji, (bi, d) in enumerate(jobs):
-            crop = frames[bi, d.y : d.y + d.height, d.x : d.x + d.width]
-            if crop.numel():
-                by_size.setdefault(tuple(crop.shape), []).append((ji, crop))
-            else:
-                pca[ji] = (-1, UNKNOWN, 0.0)
-        for items in by_size.values():
-            outs = recognizer.recognize_batch(
-                torch.stack([c for _, c in items]), cfg.recognize.pca_gate
-            )
-            for (ji, _), o in zip(items, outs):
-                pca[ji] = o
-        lap("verify")
-        # Per-frame arbitration + fusion (identical to the per-frame path).
-        job_of_frame: dict = {}
-        for ji, (bi, d) in enumerate(jobs):
-            job_of_frame.setdefault(bi, []).append((ji, d))
-        for bi in range(len(host)):
-            frame_jobs = job_of_frame.get(bi, [])
-            if len(frame_jobs) > 1:
-                best_sc, best = -1.0, None
-                for ji, d in frame_jobs:
-                    sc = arbitration_score(d.width, d.height, pca[ji][2], cfg.recognize)
-                    if sc > best_sc:
-                        best_sc, best = sc, (ji, d)
-                frame_jobs = [best] if best else []
-            for ji, d in frame_jobs:
-                _, pname, pconf = pca[ji]
-                final_name, final_conf = fuse_template_pca(
-                    d.person_name, d.confidence, pname, pconf, cfg.recognize
-                )
-                if writer:
-                    annotate.draw_v4(
-                        host[bi], (d.x, d.y, d.width, d.height), final_name, d.confidence, pconf
+        with span("scan.upload_gray"):
+            frames = torch.from_numpy(host).to(device)
+            grays = bgr_to_gray_exact(frames)
+        with span("scan.detect_device"):
+            scale_meta, packed = detector.detect_fused_device(grays)
+        with span("scan.detect_select"):
+            dets_per_frame = detector.detect_fused_finish(scale_meta, packed, len(host))
+            dets_per_frame = [d[: cfg.detect.max_detections] for d in dets_per_frame]
+        with span("scan.verify"):
+            # Gather every crop of the batch, grouped by box size -> one
+            # recognize_batch call per distinct size.
+            jobs = [(bi, d) for bi, dets in enumerate(dets_per_frame) for d in dets]
+            pca: dict = {}
+            by_size: dict = {}
+            for ji, (bi, d) in enumerate(jobs):
+                crop = frames[bi, d.y : d.y + d.height, d.x : d.x + d.width]
+                if crop.numel():
+                    by_size.setdefault(tuple(crop.shape), []).append((ji, crop))
+                else:
+                    pca[ji] = (-1, UNKNOWN, 0.0)
+            for items in by_size.values():
+                with span("scan.recognize"):
+                    outs = recognizer.recognize_batch(
+                        torch.stack([c for _, c in items]), cfg.recognize.pca_gate
                     )
-                results.append(_record(frame_no + bi, d, final_name, pconf, final_conf))
-            if writer:
-                writer.write(host[bi])
-        lap("fuse")
+                count("scan.faces", len(items))
+                for (ji, _), o in zip(items, outs):
+                    pca[ji] = o
+        with span("scan.fuse"):
+            # Per-frame arbitration + fusion (identical to the per-frame path).
+            job_of_frame: dict = {}
+            for ji, (bi, d) in enumerate(jobs):
+                job_of_frame.setdefault(bi, []).append((ji, d))
+            for bi in range(len(host)):
+                frame_jobs = job_of_frame.get(bi, [])
+                if len(frame_jobs) > 1:
+                    best_sc, best = -1.0, None
+                    for ji, d in frame_jobs:
+                        sc = arbitration_score(d.width, d.height, pca[ji][2], cfg.recognize)
+                        if sc > best_sc:
+                            best_sc, best = sc, (ji, d)
+                    frame_jobs = [best] if best else []
+                for ji, d in frame_jobs:
+                    _, pname, pconf = pca[ji]
+                    final_name, final_conf = fuse_template_pca(
+                        d.person_name, d.confidence, pname, pconf, cfg.recognize
+                    )
+                    if writer:
+                        annotate.draw_v4(
+                            host[bi], (d.x, d.y, d.width, d.height), final_name, d.confidence,
+                            pconf
+                        )
+                    results.append(_record(frame_no + bi, d, final_name, pconf, final_conf))
+                if writer:
+                    writer.write(host[bi])
         frame_no += len(host)
     return results
 
@@ -649,11 +635,12 @@ def scan_frames_haar_multimodel(
     for frame, faces in haar_faces_per_frame(frames, detector, cfg, max_frames):
         for (x, y, w, h) in faces[: cfg.detect.max_detections]:
             crop = frame[y : y + h, x : x + w]
-            pid, name, conf = (
-                recognizer.recognize_one(crop, cfg.recognize.cosine_threshold)
-                if crop.size
-                else (-1, UNKNOWN, 0.0)
-            )
+            if crop.size:
+                with span("scan.recognize"):
+                    pid, name, conf = recognizer.recognize_one(crop, cfg.recognize.cosine_threshold)
+                count("scan.faces")
+            else:
+                pid, name, conf = -1, UNKNOWN, 0.0
             if pid < 0:
                 name = UNKNOWN
             if writer:
@@ -710,7 +697,6 @@ def scan_frames_enhanced(
     writer=None,
     max_frames: Optional[int] = None,
     detector: Optional[HaarDetector] = None,
-    timer: Optional[StageTimer] = None,
 ) -> List[dict]:
     """The enhanced-model scan over an iterator of ``(H, W, 3)`` uint8 BGR
     frames (a ``None`` frame ends it), on the model's device: Haar
@@ -720,21 +706,20 @@ def scan_frames_enhanced(
     a frame's faces recognized together by the ensemble with angle-aware
     reweighting (:func:`..models.enhanced.recognize_enhanced_batch`).
     With a ``writer`` the overlay is drawn (with OpenCV) and every frame
-    written.  ``timer`` gets the seconds of the stages ``detect``,
-    ``angle`` and ``recognize`` (each ends on a result read by the host)."""
+    written.  Its stages are the spans ``scan.detect``, ``scan.angle`` and
+    ``scan.recognize`` (:mod:`..utils.profiling`)."""
     from face_detection_recognization_pca_tpu_torch.models.enhanced import (
         detect_face_angle,
         recognize_enhanced_batch,
     )
 
     cfg = config or PipelineConfig()
-    timer = timer or StageTimer()
     detector = detector or HaarDetector(device=model.device)
     results: List[dict] = []
     frame_no = 0
     batches = haar_batches(frames, detector, cfg, max_frames)
     while True:
-        with timer.stage("detect"):
+        with span("scan.detect"):
             item = next(batches, None)
         if item is None:
             break
@@ -745,10 +730,11 @@ def scan_frames_enhanced(
                 if crop.numel():
                     boxes.append((x, y, w, h))
                     crops.append(crop)
-            with timer.stage("angle"):
+            with span("scan.angle"):
                 angles = [detect_face_angle(crop, model.device) for crop in crops]
-            with timer.stage("recognize"):
+            with span("scan.recognize"):
                 outs = recognize_enhanced_batch(model, crops, [a != "frontal" for a in angles])
+            count("scan.faces", len(crops))
             for (x, y, w, h), angle, (pid, name, conf) in zip(boxes, angles, outs):
                 if writer:
                     annotate.draw_guided(frame, (x, y, w, h), name, conf)

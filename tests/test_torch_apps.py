@@ -30,7 +30,8 @@ from face_detection_recognization_pca_tpu_torch.io.detection_json import (
 from face_detection_recognization_pca_tpu_torch.models import eigenfaces as tef
 from face_detection_recognization_pca_tpu_torch.pipeline import eval_app as teval
 from face_detection_recognization_pca_tpu_torch.pipeline import train_app as ttrain
-from face_detection_recognization_pca_tpu_torch.utils.profiling import StageTimer, device_trace
+from face_detection_recognization_pca_tpu_torch.utils import profiling
+from face_detection_recognization_pca_tpu_torch.utils.profiling import device_trace
 from artifact_checks import listing as _listing, same_artifact as _same_artifact
 from haar_scenes import video_frames, write_video
 
@@ -219,12 +220,22 @@ def test_prefetching_feed_reads_a_video(tmp_path):
 
 
 def test_stage_timer():
-    t = StageTimer()
-    for name in ("a", "a", "b"):
-        with t.stage(name):
-            pass
-    assert t.counts["a"] == 2 and t.counts["b"] == 1
-    assert "a:" in t.summary() and "2 calls" in t.summary()
+    """The tracer that took ``StageTimer``'s place: per-name counts in its
+    summary while on, nothing while off."""
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        for name in ("a", "a", "b"):
+            with profiling.span(name):
+                pass
+    finally:
+        profiling.enable(False)
+    with profiling.span("a"):
+        pass
+    totals = profiling.snapshot()["totals"]
+    assert totals["a"][0] == 2 and totals["b"][0] == 1
+    assert "a: 2 spans" in profiling.summary() and "b: 1 spans" in profiling.summary()
+    profiling.reset()
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):

@@ -31,6 +31,7 @@ from face_detection_recognization_pca_tpu_torch.io.video import VideoReader, Vid
 from face_detection_recognization_pca_tpu_torch.pipeline import detect_app as tdetect_app
 from face_detection_recognization_pca_tpu_torch.pipeline import scan_app as tscan
 from face_detection_recognization_pca_tpu_torch.recognize import engine as tengine
+from face_detection_recognization_pca_tpu_torch.utils import profiling
 from haar_scenes import VIDEO_PLANTS, ReplayDetector, scene as haar_scene_frame, video_frames, \
     write_video
 
@@ -264,20 +265,31 @@ def test_scan_multimodel_batched_matches_jax_and_the_per_frame_scan(scene, tmp_p
 def test_batch_and_frame_iterator_forms_need_no_file(scene):
     """``scan_batches_multimodel`` and ``scan_frames_multimodel`` on frames
     in memory, with a stack and a bank built by the loaders: the same
-    records either way, lists or stacks of frames, and stage timings."""
+    records either way, lists or stacks of frames, and the batched scan's
+    stage spans."""
     _, frames, lock, plants = scene
     stack = tengine.ModelStack.from_lock_dir(lock, device=CPU)
     bank = ttpl.TemplateBank.from_person_dirs(lock, persons=set(stack.model_names), device=CPU)
-    timings = {}
-    batched = tscan.scan_batches_multimodel([frames[:4], list(frames[4:])], stack, bank,
-                                            timings=timings)
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        batched = tscan.scan_batches_multimodel([frames[:4], list(frames[4:])], stack, bank)
+    finally:
+        profiling.enable(False)
+    traced = profiling.snapshot()
+    profiling.reset()
     per_frame = tscan.scan_frames_multimodel(iter(frames), stack, bank)
     _assert_same_records(batched, per_frame)
     assert [r["frame_number"] for r in batched] == list(range(N_FRAMES - 1))
     for r in batched:
         assert r["person_name"] in ("ann", "bob") and r["width"] == SIDE
-    assert set(timings) == {"upload_gray", "detect_device", "detect_select", "verify", "fuse"}
-    assert all(v > 0 for v in timings.values())
+    stages = ("scan.upload_gray", "scan.detect_device", "scan.detect_select", "scan.verify",
+              "scan.fuse")
+    assert set(traced["totals"]) == set(stages) | {"scan.recognize"}
+    assert all(traced["totals"][name][0] == 2 and traced["totals"][name][1] > 0
+               for name in stages)
+    # Every crop is recognized, the arbitration's losers too.
+    assert traced["counters"]["scan.faces"] >= len(batched)
     assert tscan.scan_frames_multimodel([frames[0], None, frames[1]], stack, bank) == per_frame[:1]
     assert len(tscan.scan_batches_multimodel([frames[:4], frames[4:]], stack, bank,
                                              max_frames=5)) == 5
