@@ -117,7 +117,17 @@ Phases, each printing a line:
     (depth 6) frames/s, device ms and kernels per batch
     (``torch.profiler``), the busy share, peak memory, the bytes of the
     resize's matrix cache and which ``group_rectangles`` route ran.  Then
-    the same once at 1080p, batch 16;
+    the same once at 1080p, batch 16.  On the 544p batch it prints the
+    cascade kernel's own figures (``csrc/haar_cascade.cu``): its build's
+    ptxas registers and spills, its device time per batch by CUDA events
+    beside the bound reckoned from the windows that enter each stage (the
+    kernel run again with a boundary after every stage, its verdicts and
+    counts held to the detector's), and the plain stage groups' time on
+    the card for the same batch, called explicitly, whose rows and
+    survivors must equal the kernel's.  At each size the detector must
+    launch the kernel once per batch of ``bench.haar_detect`` (the
+    ``haar_cascade`` entry of the closing JSON line: launches by path, ms,
+    ``plain_ms``, ``bound_ms``);
 12. the reference's flow in small, without OpenCV or a video file: for two
     persons (``bench.haar_face(side, person)``), 24 uint8 BGR 544p frames
     each through ``detect_frames`` (the body of ``detect_video``), the
@@ -128,9 +138,9 @@ Phases, each printing a line:
     the tolerance above, its name the planted person's, and a
     ``DetectionFile`` must survive ``write_detection_json`` and
     ``read_detection_json``.  It prints the frames/s of both halves.
-    Neither phase launches a hand-written kernel (the Haar arithmetic is
-    PyTorch's own operators, as it was XLA's in the JAX package), and both
-    check that;
+    Neither phase launches the fused-match or gallery kernel, and both
+    check that; phase 12 checks that its detector launched the cascade
+    kernel;
 13. the CCOEFF detector: ``bench.ccoeff_detect`` (seed 11), 4 uint8 gray
     1080p frames, 2 persons x 10 templates of 100 x 100 (one shape
     group), scales 0.5-1.6, 128 candidates, person 0's clean face planted
@@ -288,7 +298,7 @@ from face_detection_recognization_pca_tpu_torch.models.eigenfaces import (
     train_v1,
     train_v2,
 )
-from face_detection_recognization_pca_tpu_torch.ops import _build
+from face_detection_recognization_pca_tpu_torch.ops import _build, haar_cascade
 from face_detection_recognization_pca_tpu_torch.ops import resize as port_resize
 from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
     LinearizedModel,
@@ -357,6 +367,7 @@ SCAN_FRAMES, SCAN_BATCH, SCAN_SEED, SCAN_PERSON = 256, 16, 7, "planted_person"
 DETECT_BATCH, DETECT_TEMPLATES, DETECT_SEED = 16, 8, 3
 MULTISCAN_FRAMES, MULTISCAN_BATCH, MULTISCAN_SEED, MULTISCAN_SIDE = 64, 16, 5, 128
 HAAR_BATCH, HAAR_SEED = 16, 5  # the JAX package's bench_haar: batch 16, 544p, seed 5
+HAAR_ITERS, HAAR_DEPTH = 3, 6  # bench.haar_detect's timed calls and pipelined batches
 PIPELINE_TRAIN_FRAMES, PIPELINE_SCAN_FRAMES, PIPELINE_K = 24, 16, 16
 CCOEFF_BATCH, CCOEFF_SEED, CCOEFF_K = 4, 11, 128
 CCOEFF_BAND = 1e-4  # of the largest |score|: a near-tie at rank k
@@ -396,6 +407,15 @@ KERNELS = {
         "source": "face_detection_recognization_pca_tpu_torch/csrc/gallery_match.cu",
         "replaces": "face_detection_recognization_pca_tpu/ops/pallas_kernels.py:232",
     },
+}
+
+
+# Built and checked in phase 11, beside KERNELS in the closing JSON line.
+HAAR_KERNEL = {
+    "name": "haar_cascade",
+    "route": "cuda",
+    "source": "face_detection_recognization_pca_tpu_torch/csrc/haar_cascade.cu",
+    "replaces": None,
 }
 
 
@@ -1389,7 +1409,88 @@ def numpy_cascade_accepts(gray: np.ndarray, cascade, step: int) -> set:
     return {(int(x) * step, int(y) * step) for y, x in zip(iy, ix)}
 
 
-def phase_haar(dev, card: str) -> None:
+# The H100 SXM's float64 instruction rate outside the tensor cores: 132
+# SMs, 64 float64 lanes each, 1.98 GHz boost (NVIDIA's data sheet gives
+# 34 TFLOP/s, which counts a fused multiply-add as two operations).
+FP64_INSTRUCTIONS_PER_S = 132 * 64 * 1.98e9
+
+
+def _stump_instructions(cascade) -> np.ndarray:
+    """float64 instructions a stump evaluation needs, per stump: per rect
+    three subtractions of its corners and a multiply-add of its weight, then
+    the threshold times the norm, the compare and the add into the stage
+    sum.  The widenings of float32 table values are left out: a table in
+    float64 would need none."""
+    rects = cascade.rects[cascade.stump_feature]
+    return 4 * (rects[:, :, 4] != 0).sum(axis=1) + 3
+
+
+def _haar_cascade_figures(det, frames) -> dict:
+    """The cascade kernel on one batch of ``frames``: its device ms per
+    batch by CUDA events, the bound reckoned from the windows that enter
+    every stage, and the plain stage groups on the card for the same
+    batch, whose rows and survivors must equal the kernel's."""
+    nb, h, w = frames.shape
+    cascade = det.cascade
+    levels = haar._pyramid_levels(h, w, cascade.window_size, 1.1, (30, 30), None)
+    handle, plain = {"survivors": []}, {"survivors": []}
+    with port_device.exact_float32():
+        batch = det._integrals(frames.to(torch.float32), levels, handle)
+    rows = det._stages_kernel(batch, handle)
+    counts = handle["counts"].tolist()
+    table = haar_cascade.level_table(nb, levels, batch.grids, batch.int_starts, batch.win_starts,
+                                     cascade.window_size, frames.device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    reps = 20
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        verdicts, _ = haar_cascade.haar_cascade(batch.integrals, batch.norms, table, det._packed)
+    end.record()
+    torch.cuda.synchronize()
+    kernel_ms = start.elapsed_time(end) / reps
+    det._stages_plain(batch, {"survivors": []})  # builds its stage groups on the card
+    start.record()
+    plain_rows = det._stages_plain(batch, plain)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    got = det._survivors(counts)
+    check(torch.equal(plain_rows, rows) and got == plain["survivors"],
+          f"the cascade kernel's rows and survivors {got} equal the plain path's "
+          f"{plain['survivors']}")
+    # The windows past every stage: the same kernel with a boundary after
+    # each stage, whose counts at the detector's boundaries must be its own.
+    every = haar_cascade.pack_cascade(cascade, range(1, cascade.n_stages + 1), frames.device)
+    passed, past = haar_cascade.haar_cascade(batch.integrals, batch.norms, table, every)
+    past = past.tolist()
+    check(torch.equal(passed, verdicts) and [past[b - 1] for b in det._bounds()] == counts,
+          f"the windows past each stage {past} agree with the detector's counts {counts}")
+    # A window runs every stump of each stage it enters and leaves at its
+    # first failed stage: the stump evaluations the cascade needs.
+    entering = [len(batch.norms)] + past[:-1]
+    per_stump = _stump_instructions(cascade)
+    offsets = cascade.stage_offsets
+    evals = sum(n * int(offsets[s + 1] - offsets[s]) for s, n in enumerate(entering))
+    instructions = sum(n * int(per_stump[offsets[s]:offsets[s + 1]].sum())
+                       for s, n in enumerate(entering))
+    ops_ms = instructions / FP64_INSTRUCTIONS_PER_S * 1e3
+    # The integrals and norms read once, one byte a window written.
+    nbytes = 8 * (len(batch.integrals) + len(batch.norms)) + len(batch.norms)
+    bytes_ms = nbytes / bench.HBM_BYTES_PER_S * 1e3
+    bnd = ({"bound_ms": ops_ms, "bound_by": "float64 instructions"} if ops_ms >= bytes_ms
+           else {"bound_ms": bytes_ms, "bound_by": "bytes"})
+    ptxas = _ptxas_counts(_build.library_path("haar_cascade").with_suffix(".log").read_text())
+    return {"ms": kernel_ms, "event_reps": reps, "plain_ms": plain_ms, **bnd,
+            "share": bnd["bound_ms"] / kernel_ms, "instructions_ms": ops_ms, "bytes_ms": bytes_ms,
+            "stump_evaluations": evals, "fp64_instructions": instructions,
+            "windows": len(batch.norms), "past_each_stage": past, "survivors": got,
+            "ptxas": ptxas, "library_ms": None}
+
+
+def phase_haar(dev, card: str) -> dict:
+    """The Haar detector on the card (point 11 of the docstring); the
+    cascade kernel's figures, with its launches by frame size."""
     path = haar.find_cascade()
     digest = hashlib.sha256(open(path, "rb").read()).hexdigest()
     cascade = haar.load_cascade(path)
@@ -1399,11 +1500,22 @@ def phase_haar(dev, card: str) -> None:
     det = haar.HaarDetector(cascade, device=dev)
     on_cpu = haar.HaarDetector(cascade, device="cpu")
     fused_match.launches = gallery_match.launches = 0
+    t0 = time.perf_counter()
+    haar_cascade._lib()
+    print(f"[haar] csrc/haar_cascade.cu built or loaded in {time.perf_counter() - t0:.2f} s")
+    by_path, figures = {}, {}
     for size in ("544p", "1080p"):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        result = bench.haar_detect(HAAR_BATCH, bench.SIZES[size], iters=3, seed=HAAR_SEED,
-                                   device=dev, detector=det)
+        haar_cascade.haar_cascade.launches = 0
+        result = bench.haar_detect(HAAR_BATCH, bench.SIZES[size], iters=HAAR_ITERS,
+                                   seed=HAAR_SEED, depth=HAAR_DEPTH, device=dev, detector=det)
+        # bench.haar_detect's batches: a warm-up, the timed calls and the
+        # pipelined ones, each one detect_device.
+        by_path[size] = haar_cascade.haar_cascade.launches
+        check(by_path[size] == 1 + HAAR_ITERS + HAAR_DEPTH,
+              f"{size}: the detector launched its cascade kernel once per batch "
+              f"({by_path[size]} launches for {1 + HAAR_ITERS + HAAR_DEPTH} batches)")
         frames, plants, handle = result["frames"], result["plants"], result["handle"]
         boxes = result["detections"]
         others = 0
@@ -1430,6 +1542,21 @@ def phase_haar(dev, card: str) -> None:
         check(got == want and len(got) > 0,
               f"{size} level {level}: card accepts {sorted(got)}, numpy cascade {sorted(want)}")
 
+        if size == "544p":
+            figures = _haar_cascade_figures(det, frames)
+            print(f"[haar] cascade kernel, {size} batch {HAAR_BATCH}: {figures['ms']:.4f} ms per "
+                  f"batch (CUDA events over {figures['event_reps']} launches), bound "
+                  f"{figures['bound_ms']:.4f} ms ({figures['bound_by']}: "
+                  f"{figures['stump_evaluations']} stump evaluations of the windows entering "
+                  f"each stage, {figures['fp64_instructions']} float64 instructions at "
+                  f"{FP64_INSTRUCTIONS_PER_S:.4g}/s, {figures['instructions_ms']:.4f} ms; bytes "
+                  f"{figures['bytes_ms']:.4f} ms), share {figures['share']:.4f}; windows "
+                  f"{figures['windows']}, past each stage {figures['past_each_stage']}; plain "
+                  f"stage groups on the card {figures['plain_ms']:.3f} ms, their rows and "
+                  f"survivors equal the kernel's; survivors {figures['survivors']}; ptxas: "
+                  f"{json.dumps(figures['ptxas'])}; launches by bench.haar_detect {by_path[size]} "
+                  f"(one per batch); card {card}")
+
         traced = bench.traced_kernels(lambda: det.detect_device(frames), 2)
         check(bool(traced), f"{size}: torch.profiler saw the detector's kernels")
         device_ms = sum(us for _, us, _ in traced) / 1e3
@@ -1441,7 +1568,7 @@ def phase_haar(dev, card: str) -> None:
               f"{len(handle['levels'])} levels, {handle['windows']} windows per frame, candidates "
               f"after (stage, left) {handle['survivors']}, raw rectangles {result['raw']}; "
               f"blocking {result['fps']} frames/s ({result['ms_per_batch']} ms per batch, best of "
-              f"3), pipelined depth 6 {result['pipelined_fps']} frames/s "
+              f"{HAAR_ITERS}), pipelined depth {HAAR_DEPTH} {result['pipelined_fps']} frames/s "
               f"({result['pipelined_ms_per_batch']} ms per batch); device {device_ms} ms in "
               f"{sum(c for _, _, c in traced):.0f} kernels per batch (torch.profiler), busy share "
               f"{device_ms / result['ms_per_batch']}, by family "
@@ -1452,16 +1579,18 @@ def phase_haar(dev, card: str) -> None:
         del result, frames, handle
         torch.cuda.empty_cache()
     check(fused_match.launches == 0 and gallery_match.launches == 0,
-          "the Haar detector launches no hand-written kernel")
+          "the Haar detector launches no fused-match or gallery kernel")
+    return {**figures, "launches_by_path": by_path}
 
 
-def phase_haar_pipeline(dev, card: str) -> None:
+def phase_haar_pipeline(dev, card: str) -> int:
     size = bench.SIZES["544p"]
     h, w = size
     persons = {"person1": 1, "person2": 2}
     det = haar.HaarDetector(device=dev)
     meta = VideoMeta(w, h, 30.0, PIPELINE_TRAIN_FRAMES)
     fused_match.launches = gallery_match.launches = 0
+    haar_cascade.haar_cascade.launches = 0
     with tempfile.TemporaryDirectory() as lock_dir:
         train_seconds = []
         for name, person in persons.items():
@@ -1510,7 +1639,9 @@ def phase_haar_pipeline(dev, card: str) -> None:
         check(r["person_name"] == names[i % len(names)] and r["person_id"] == 0,
               f"frame {i}: named {r['person_name']} ({r['confidence']})")
     check(fused_match.launches == 0 and gallery_match.launches == 0,
-          "the Haar flows launch no hand-written kernel")
+          "the Haar flows launch no fused-match or gallery kernel")
+    launches = haar_cascade.haar_cascade.launches
+    check(launches > 0, "the Haar flows launch the cascade kernel")
     train_fps = [PIPELINE_TRAIN_FRAMES / seconds for seconds in train_seconds]
     print(f"[haar-pipeline] {len(persons)} persons x {PIPELINE_TRAIN_FRAMES} uint8 BGR 544p frames "
           f"through detect_frames ({DETECT_BATCH} frames per detector call): one face per frame at the "
@@ -1521,7 +1652,9 @@ def phase_haar_pipeline(dev, card: str) -> None:
           f"{PIPELINE_SCAN_FRAMES} fresh frames through scan_frames_haar_multimodel: one record "
           f"per frame with the planted box and person, min confidence "
           f"{min(r['confidence'] for r in records):.6f}, "
-          f"{PIPELINE_SCAN_FRAMES / scan_seconds} frames/s (host clock); card {card}")
+          f"{PIPELINE_SCAN_FRAMES / scan_seconds} frames/s (host clock); {launches} cascade "
+          f"kernel launches; card {card}")
+    return launches
 
 
 def _band_boxes(parts, k: int, band_of) -> set:
@@ -1600,13 +1733,14 @@ def phase_ccoeff(dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_enhanced(dev, card: str) -> None:
+def phase_enhanced(dev, card: str) -> int:
     h, w = bench.SIZES["1080p"]
     t0 = time.perf_counter()
     train_frames, frames, plants, person_ids, fresh_frames, profile_crops = (
         bench.enhanced_assets(ENHANCED_SCAN, (h, w), ENHANCED_SEED))
     det = haar.HaarDetector(device=dev)
     fused_match.launches = gallery_match.launches = 0
+    haar_cascade.haar_cascade.launches = 0
     crops, labels = [], []
     for label, (person_frames, person_plants) in enumerate(train_frames):
         found, found_crops = detect_frames(
@@ -1692,7 +1826,9 @@ def phase_enhanced(dev, card: str) -> None:
             (br.scaler.scale, other.scaler.scale))), f"{b}: the pickle gives equal arrays")
     check(np.array_equal(back.labels, model.labels), "the pickle gives equal labels")
     check(fused_match.launches == 0 and gallery_match.launches == 0,
-          "the enhanced flow launches no hand-written kernel")
+          "the enhanced flow launches no fused-match or gallery kernel")
+    launches = haar_cascade.haar_cascade.launches
+    check(launches > 0, "the enhanced flow's detectors launch the cascade kernel")
     print(f"[enhanced] 2 persons x {bench.ENHANCED_PER_PERSON} 1080p frames -> {len(crops)} Haar crops "
           f"(sides 120-220) -> train_enhanced on the card in {train_s:.3f} s (gallery rows "
           f"{rows['hog'][0]}, k per branch "
@@ -1709,7 +1845,8 @@ def phase_enhanced(dev, card: str) -> None:
           f"gives equal arrays; {ENHANCED_SCAN / scan_s} frames/s with the copies inside (host "
           f"clock, tracer on); seconds per stage span, host time (the enqueue plus any wait "
           f"inside the stage): {json.dumps(stage_s)}; phase "
-          f"{time.perf_counter() - t0:.2f} s; card {card}")
+          f"{time.perf_counter() - t0:.2f} s; {launches} cascade kernel launches; card {card}")
+    return launches
 
 
 def phase_flow(dev, card: str) -> int:
@@ -2237,10 +2374,10 @@ def main() -> int:
     phase_detect(dev, card)
     by_path["multiscan"], d16384 = phase_multiscan(dev, card)
     torch.cuda.empty_cache()
-    phase_haar(dev, card)
-    phase_haar_pipeline(dev, card)
+    haar_figures = phase_haar(dev, card)
+    haar_figures["launches_by_path"]["haar-pipeline"] = phase_haar_pipeline(dev, card)
     phase_ccoeff(dev, card)
-    phase_enhanced(dev, card)
+    haar_figures["launches_by_path"]["enhanced"] = phase_enhanced(dev, card)
     torch.cuda.empty_cache()
     by_path["cli_bench"] = phase_flow(dev, card)
     torch.cuda.empty_cache()
@@ -2256,6 +2393,8 @@ def main() -> int:
         {**KERNELS["gallery_match"], "launches": sum(gallery_by_path.values()),
          "launches_by_path": gallery_by_path, **gallery, "n_1048573": n1m,
          "sass": sass["gallery_match"]},
+        {**HAAR_KERNEL, "launches": sum(haar_figures["launches_by_path"].values()),
+         **haar_figures},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

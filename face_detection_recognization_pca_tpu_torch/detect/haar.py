@@ -22,12 +22,23 @@ thing on a torch device:
    nothing is ever truncated and the result does not depend on
    ``dense_stages`` or on the grouping.
 
+Steps 2-3 are the plain path, which runs on the CPU.  On a CUDA device
+one launch of ``csrc/haar_cascade.cu`` (``ops/haar_cascade``) runs every
+stage over every window of the batch instead, with the same compaction
+boundaries kept on chip, and one ``torch.nonzero`` lists the accepted
+windows in the same order.
+
 Precision of each step: the resize is float32 (``ops/resize``'s two
 interpolation matmuls, always in full float32, never TF32); the result is
 not rounded.  Integral and squared integral, the window norm, the rect
 sums, the stump tests and the stage sums are float64: a float32 squared
 integral is inexact after a few hundred pixels, and then the accept set
-would depend on the order in which a device sums.
+would depend on the order in which a device sums.  In float64 the card's
+and the CPU's integrals of a resized level still differ in their last
+bits (up to about 1e-7 relative at 1080p), so a stump within that of its
+threshold can take another leaf on the other device: once in 52M windows
+of sixteen 1080p frames, and there the window failed a later stage on
+both.
 
 Window normalization follows OpenCV's current convention: inner
 ``(1, 1, 22, 22)`` norm rect, ``nf = sqrt(area * sqsum - sum^2)``
@@ -46,12 +57,13 @@ from __future__ import annotations
 import dataclasses
 import os
 import xml.etree.ElementTree as ET
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from face_detection_recognization_pca_tpu_torch.device import exact_float32, resolve_device
+from face_detection_recognization_pca_tpu_torch.ops import haar_cascade
 from face_detection_recognization_pca_tpu_torch.ops.resize import resize_bilinear
 from face_detection_recognization_pca_tpu_torch.utils.profiling import count, span
 
@@ -276,6 +288,34 @@ def _stages_pass(corners: torch.Tensor, nf: torch.Tensor, g: _StageGroup) -> tor
     return (leaves @ g.stage_of >= g.stage_threshold).all(dim=-1)
 
 
+def _window_coords(idx: torch.Tensor, starts: torch.Tensor, ny: torch.Tensor, nx: torch.Tensor,
+                   step: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Flat window-buffer indices -> ``(level, frame, y, x)``, ``y`` and
+    ``x`` in level coordinates, from the levels' first windows ``starts``,
+    grids and strides."""
+    level = torch.bucketize(idx, starts[1:], right=True)
+    rest = idx - starts[level]
+    per_frame = ny[level] * nx[level]
+    frame = rest // per_frame
+    rest = rest - frame * per_frame
+    y = (rest // nx[level]) * step[level]
+    x = (rest % nx[level]) * step[level]
+    return level, frame, y, x
+
+
+class _Batch(NamedTuple):
+    """A batch's levels and their float64 integrals and window norms, each
+    in one flat buffer, level after level (frame, row, column inside)."""
+
+    frames: int
+    levels: list  # [(factor, sh, sw, step)]
+    grids: list  # [(ny, nx)]
+    int_starts: np.ndarray  # (L + 1,) each level's first integral value; the total last
+    win_starts: np.ndarray  # (L + 1,) each level's first window; the total last
+    integrals: torch.Tensor
+    norms: torch.Tensor
+
+
 class HaarDetector:
     """``detectMultiScale`` with reference parameter semantics, computing
     on ``device`` (``None``: the CUDA device).
@@ -294,6 +334,25 @@ class HaarDetector:
         self.device = resolve_device(device)
         self.dense_stages = max(1, min(int(dense_stages), self.cascade.n_stages))
         self._groups: Dict[Tuple[int, int], _StageGroup] = {}
+        self._packed: Optional[haar_cascade.PackedCascade] = None
+
+    def _bounds(self) -> List[int]:
+        """The stages after which the candidates are listed again: the dense
+        boundary, the later ``_COMPACT_AT`` and the last stage."""
+        n = self.cascade.n_stages
+        return sorted({self.dense_stages, n}
+                      | {s for s in _COMPACT_AT if self.dense_stages < s < n})
+
+    def _survivors(self, counts: Sequence[int]) -> List[Tuple[int, int]]:
+        """The kernel's windows past each boundary as the plain path lists
+        them: ``(stages done, windows left)``, up to the first that leaves
+        none."""
+        out = []
+        for stage, left in zip(self._bounds(), counts):
+            out.append((stage, int(left)))
+            if not left:
+                break
+        return out
 
     def _group(self, lo: int, hi: int) -> _StageGroup:
         key = (lo, hi)
@@ -348,7 +407,9 @@ class HaarDetector:
         Returns a handle for :meth:`detect_finish`.  Besides what that
         needs it holds ``windows`` (per frame, over all levels) and
         ``survivors``, the ``(stages done, candidates left)`` after each
-        compaction over the whole batch."""
+        compaction over the whole batch, up to the first that leaves none
+        (on a CUDA device filled in by :meth:`detect_finish`, from the
+        kernel's counts)."""
         frames = torch.as_tensor(grays).to(self.device)
         nb, h, w = frames.shape
         wh, ww = self.cascade.window_size
@@ -360,6 +421,7 @@ class HaarDetector:
             "windows": 0,
             "survivors": [],
             "rows": None,
+            "counts": None,
             "ready": None,
         }
         if not levels or nb == 0:
@@ -369,6 +431,8 @@ class HaarDetector:
         if self.device.type == "cuda":
             host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
             host.copy_(rows, non_blocking=True)
+            counts = torch.empty(handle["counts"].shape, dtype=torch.int64, pin_memory=True)
+            handle["counts"] = counts.copy_(handle["counts"], non_blocking=True)
             handle["ready"] = torch.cuda.Event()
             handle["ready"].record()
         else:
@@ -380,26 +444,31 @@ class HaarDetector:
         """int32 ``(n, 4)`` rows ``(frame, level, y, x)`` of the windows
         that pass all stages, ``y`` and ``x`` in level coordinates, sorted
         by level, then frame, then ``y``, then ``x``."""
+        batch = self._integrals(frames, levels, handle)
+        if self.device.type == "cuda":
+            return self._stages_kernel(batch, handle)
+        return self._stages_plain(batch, handle)
+
+    def _integrals(self, frames: torch.Tensor, levels, handle: dict) -> "_Batch":
+        """The levels' float64 integrals and window norms of ``(B, H, W)``
+        float32 ``frames``."""
         dev = self.device
         nb, h, w = frames.shape
         wh, ww = self.cascade.window_size
-        side = max(wh, ww) + 1
         grids = [((sh - wh) // st + 1, (sw - ww) // st + 1) for (_, sh, sw, st) in levels]
         # Every level's integral lies in one flat buffer, and its windows'
-        # norms and dense-stage verdicts in two more, level after level, so
-        # that one nonzero lists the candidates of the whole batch and one
-        # gather reads any of them.
+        # norms and verdicts in two more, level after level, so that one
+        # nonzero lists the candidates of the whole batch and one gather
+        # reads any of them.
         int_sizes = [nb * (sh + 1) * (sw + 1) for (_, sh, sw, _) in levels]
         win_sizes = [nb * ny * nx for ny, nx in grids]
         int_starts = np.concatenate([[0], np.cumsum(int_sizes)]).astype(np.int64)
         win_starts = np.concatenate([[0], np.cumsum(win_sizes)]).astype(np.int64)
         integrals = torch.empty(int(int_starts[-1]), dtype=torch.float64, device=dev)
         norms = torch.empty(int(win_starts[-1]), dtype=torch.float64, device=dev)
-        passed = torch.empty(int(win_starts[-1]), dtype=torch.bool, device=dev)
         handle["windows"] = int(win_starts[-1]) // nb
         count("haar.windows", int(win_starts[-1]))
         area = float((wh - 2) * (ww - 2))
-        dense = self._group(0, self.dense_stages)
 
         for li, (_, sh, sw, step) in enumerate(levels):
             ny, nx = grids[li]
@@ -429,8 +498,47 @@ class HaarDetector:
                 nf2 = area * s2 - s1 * s1
                 nf = torch.where(nf2 > 0, torch.sqrt(nf2.clamp_min(0.0)), 1.0)
                 norms[win_starts[li] : win_starts[li + 1]].view(nb, ny, nx).copy_(nf)
+        return _Batch(nb, levels, grids, int_starts, win_starts, integrals, norms)
 
+    def _stages_kernel(self, batch: "_Batch", handle: dict) -> torch.Tensor:
+        """Every stage over every window of ``batch`` in one launch of
+        ``csrc/haar_cascade.cu``, then one nonzero: the rows of
+        :meth:`_accepted_windows`.  The windows past each compaction
+        boundary go to ``handle["counts"]`` on the device."""
+        dev = batch.integrals.device
+        table = haar_cascade.level_table(batch.frames, batch.levels, batch.grids,
+                                         batch.int_starts, batch.win_starts,
+                                         self.cascade.window_size, dev)
+        if self._packed is None:
+            self._packed = haar_cascade.pack_cascade(self.cascade, self._bounds(), dev)
+        with span("haar.cascade"):
+            passed, handle["counts"] = haar_cascade.haar_cascade(
+                batch.integrals, batch.norms, table, self._packed)
+            count("haar.cascade.launches")
+            idx = torch.nonzero(passed).squeeze(1)
+            t = table.table
+            level, frame, y, x = _window_coords(idx, t[1], t[3], t[4], t[5])
+            return torch.stack([frame, level, y, x], dim=1).to(torch.int32)
+
+    def _stages_plain(self, batch: "_Batch", handle: dict) -> torch.Tensor:
+        """The plain version of :meth:`_stages_kernel`, on any device: per
+        level the dense stages over every window, then the compactions and
+        the later stage groups; the survivors go to ``handle["survivors"]``."""
+        nb, levels, grids = batch.frames, batch.levels, batch.grids
+        int_starts, win_starts = batch.int_starts, batch.win_starts
+        integrals, norms = batch.integrals, batch.norms
+        dev = integrals.device
+        wh, ww = self.cascade.window_size
+        side = max(wh, ww) + 1
+        passed = torch.empty(int(win_starts[-1]), dtype=torch.bool, device=dev)
+        dense = self._group(0, self.dense_stages)
+
+        for li, (_, sh, sw, step) in enumerate(levels):
+            ny, nx = grids[li]
+            h1, w1 = sh + 1, sw + 1
             with span("haar.dense"):
+                ii = integrals[int_starts[li] : int_starts[li + 1]].view(nb, h1, w1)
+                nf = norms[win_starts[li] : win_starts[li + 1]].view(nb, ny, nx)
                 # Window (b, i, j)'s 25 x 25 integral patch, as a view.
                 patches = ii.as_strided(
                     (nb, ny, nx, side, side), (h1 * w1, step * w1, step, w1, 1)
@@ -452,13 +560,7 @@ class HaarDetector:
             t_step = torch.tensor([lv[3] for lv in levels], dtype=torch.int64, device=dev)
             t_h1 = torch.tensor([lv[1] + 1 for lv in levels], dtype=torch.int64, device=dev)
             t_w1 = torch.tensor([lv[2] + 1 for lv in levels], dtype=torch.int64, device=dev)
-            level = torch.bucketize(idx, t_win_starts[1:], right=True)
-            rest = idx - t_win_starts[level]
-            per_frame = t_ny[level] * t_nx[level]
-            frame = rest // per_frame
-            rest = rest - frame * per_frame
-            y = (rest // t_nx[level]) * t_step[level]
-            x = (rest % t_nx[level]) * t_step[level]
+            level, frame, y, x = _window_coords(idx, t_win_starts, t_ny, t_nx, t_step)
             # Where each candidate's patch starts in the flat integral buffer,
             # and the row stride of its level's integral there.
             w1 = t_w1[level]
@@ -468,9 +570,7 @@ class HaarDetector:
             handle["survivors"].append((self.dense_stages, int(idx.numel())))
             count(f"haar.candidates.{self.dense_stages}", int(idx.numel()))
 
-            n_stages = self.cascade.n_stages
-            bounds = sorted({self.dense_stages, n_stages}
-                            | {s for s in _COMPACT_AT if self.dense_stages < s < n_stages})
+            bounds = self._bounds()
             for lo, hi in zip(bounds[:-1], bounds[1:]):
                 if rows.shape[0] == 0:
                     break
@@ -497,6 +597,11 @@ class HaarDetector:
         if handle["ready"] is not None:
             with span("haar.download"):
                 handle["ready"].synchronize()
+        if handle["counts"] is not None:
+            handle["survivors"] = self._survivors(handle["counts"].tolist())
+            for stage, left in handle["survivors"]:
+                count(f"haar.candidates.{stage}", left)
+            handle["counts"] = None
         with span("haar.group"):
             if handle["rows"] is not None:
                 rows = handle["rows"].numpy()

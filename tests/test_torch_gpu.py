@@ -1,6 +1,6 @@
-"""Tests that need a CUDA GPU: the fused-match and gallery-match kernels
-against their plain PyTorch versions on the card, and the slices going
-through them.  They skip without a GPU; on a machine with one, run
+"""Tests that need a CUDA GPU: the fused-match, gallery-match and Haar
+cascade kernels against their plain PyTorch versions on the card, and the
+slices going through them.  They skip without a GPU; on a machine with one, run
 ``python -m pytest tests/test_torch_gpu.py -m gpu``.  This file imports
 no JAX, so it runs where only the port is installed."""
 
@@ -11,6 +11,7 @@ import torch
 
 from face_detection_recognization_pca_tpu_torch.ops import fused_match as tfm
 from face_detection_recognization_pca_tpu_torch.ops import gallery_match as tgm
+from face_detection_recognization_pca_tpu_torch.ops import haar_cascade
 
 torch.set_num_threads(1)
 
@@ -576,6 +577,7 @@ def test_haar_detector_on_card_equals_the_cpu(cuda_device, precision):
     on_cpu = haar.HaarDetector(cascade, device="cpu")
     on_card = haar.HaarDetector(cascade, device=cuda_device)
     before = device.tf32_flags()
+    launches = haar_cascade.haar_cascade.launches
     torch.set_float32_matmul_precision(precision)
     try:
         got = {mn: on_card.detect_multi_scale_batch(frames, 1.1, mn) for mn in (0, 5)}
@@ -587,11 +589,138 @@ def test_haar_detector_on_card_equals_the_cpu(cuda_device, precision):
         torch.backends.cuda.matmul.allow_tf32 = before["matmul_allow_tf32"]
         torch.backends.cudnn.allow_tf32 = before["cudnn_allow_tf32"]
     assert flags_inside["matmul_allow_tf32"] == (precision == "high")  # put back after each call
+    assert haar_cascade.haar_cascade.launches == launches + 5  # once per batch
     for mn in (0, 5):
         assert got[mn] == on_cpu.detect_multi_scale_batch(frames, 1.1, mn)
     assert [len(b) for b in got[5]] == [1, 2, 0, 1]
     assert staged == got[5] and pipelined[0] + pipelined[1] == got[5]
     assert handles[0]["rows"].is_pinned() and handles[0]["ready"].query()
+    for i, handle in zip((0, 2), handles):
+        want = on_cpu.detect_device(frames[i:i + 2])
+        on_cpu.detect_finish(want)
+        assert handle["survivors"] == want["survivors"] and len(want["survivors"]) == 5
+    whole = on_card.detect_device(frames)
+    on_card.detect_finish(whole)
+    want = on_cpu.detect_device(frames)
+    on_cpu.detect_finish(want)
+    assert whole["survivors"] == want["survivors"]
+
+
+# Frames, batch and cascade of each case of the cascade kernel against the
+# plain path: planted faces at both sizes, batch 1 and 16; a blank frame,
+# where no window passes stage 0; the profile cascade of models.enhanced.
+HAAR_KERNEL_CASES = {
+    "544p-1": ("544p", 1, "frontal"), "544p-16": ("544p", 16, "frontal"),
+    "1080p-1": ("1080p", 1, "frontal"), "1080p-16": ("1080p", 16, "frontal"),
+    "blank": ("544p", 1, "blank"), "profile": ("544p", 4, "profile"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(HAAR_KERNEL_CASES))
+def test_haar_cascade_kernel_equals_the_plain_path(cuda_device, case):
+    """One launch of ``csrc/haar_cascade.cu`` per batch.  Fed the CPU's own
+    level integrals and norms, the kernel gives the CPU's plain stage
+    groups' rows and survivors exactly.  End to end, the raw rectangles
+    (minNeighbors 0), the grouped boxes (5) and the survivors after every
+    compaction equal the same detector's on the CPU exactly, order
+    included."""
+    import os
+
+    import numpy as np
+
+    from face_detection_recognization_pca_tpu_torch import bench
+    from face_detection_recognization_pca_tpu_torch.detect import haar
+    from face_detection_recognization_pca_tpu_torch.device import exact_float32
+    from face_detection_recognization_pca_tpu_torch.models.enhanced import PROFILE_CASCADE
+
+    size, batch, kind = HAAR_KERNEL_CASES[case]
+    if kind == "blank":
+        frames = np.full((batch, *bench.SIZES[size]), 128, dtype=np.uint8)
+    else:
+        bgr, plants = bench.haar_bgr_frames(batch, bench.SIZES[size], 31 + batch)
+        frames = np.ascontiguousarray(bgr[..., 0])
+    cascade = haar.load_cascade(PROFILE_CASCADE if kind == "profile" else None)
+    card = haar.HaarDetector(cascade, device=cuda_device)
+    cpu = haar.HaarDetector(cascade, device="cpu")
+    levels = haar._pyramid_levels(*frames.shape[1:], cascade.window_size, 1.1, (30, 30), None)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)  # the CPU's plain path on every frame
+    try:
+        # detect_device on the CPU, its integrals kept.
+        want = {"frames": batch, "levels": levels, "min_neighbors": 0, "windows": 0,
+                "survivors": [], "counts": None, "ready": None}
+        with exact_float32():
+            on_cpu = cpu._integrals(torch.from_numpy(frames).to(torch.float32), levels, want)
+        want["rows"] = cpu._stages_plain(on_cpu, want)
+        raw_cpu = cpu.detect_finish(want)
+        fed = {}
+        rows = card._stages_kernel(on_cpu._replace(integrals=on_cpu.integrals.to(cuda_device),
+                                                   norms=on_cpu.norms.to(cuda_device)), fed)
+        launches = haar_cascade.haar_cascade.launches
+        handle = card.detect_device(frames, 1.1, 0)
+        raw_card = card.detect_finish(handle)
+        launched = haar_cascade.haar_cascade.launches - launches
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(rows.cpu(), want["rows"])
+    assert card._survivors(fed["counts"].tolist()) == want["survivors"]
+    assert launched == 1
+    assert raw_card == raw_cpu
+    assert [haar.group_rectangles(r, 5) for r in raw_card] == \
+        [haar.group_rectangles(r, 5) for r in raw_cpu]
+    if kind == "blank":
+        assert want["survivors"] == [(3, 0)] and not any(raw_cpu)
+    if kind == "frontal":
+        assert len(want["survivors"]) == 5 and want["survivors"][-1][1] > 0
+        for boxes, plant in zip(raw_cpu, plants):
+            assert bench.haar_planted_boxes(haar.group_rectangles(boxes, 5), plant)
+    assert handle["survivors"] == want["survivors"], (
+        "the survivors differ end to end while the kernel fed the CPU's integrals gives the "
+        "CPU's: the card's haar.integral (HaarDetector._integrals: level integrals and norms) "
+        "differs from the CPU's in the last bits; "
+        "test_haar_cascade_kernel_equals_the_plain_path_on_the_cards_integrals holds the kernel")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(HAAR_KERNEL_CASES))
+def test_haar_cascade_kernel_equals_the_plain_path_on_the_cards_integrals(cuda_device, case):
+    """On the card's own level integrals and norms, one launch of
+    ``csrc/haar_cascade.cu`` gives the rows and the survivors after every
+    compaction that the plain stage groups give on the card, exactly and in
+    order: the kernel against its plain version, with the integrals held
+    the same on both sides."""
+    import numpy as np
+
+    from face_detection_recognization_pca_tpu_torch import bench
+    from face_detection_recognization_pca_tpu_torch.detect import haar
+    from face_detection_recognization_pca_tpu_torch.device import exact_float32
+    from face_detection_recognization_pca_tpu_torch.models.enhanced import PROFILE_CASCADE
+
+    size, batch, kind = HAAR_KERNEL_CASES[case]
+    if kind == "blank":
+        frames = np.full((batch, *bench.SIZES[size]), 128, dtype=np.uint8)
+    else:
+        bgr, _ = bench.haar_bgr_frames(batch, bench.SIZES[size], 31 + batch)
+        frames = np.ascontiguousarray(bgr[..., 0])
+    cascade = haar.load_cascade(PROFILE_CASCADE if kind == "profile" else None)
+    card = haar.HaarDetector(cascade, device=cuda_device)
+    levels = haar._pyramid_levels(*frames.shape[1:], cascade.window_size, 1.1, (30, 30), None)
+    with exact_float32():
+        on_card = card._integrals(torch.from_numpy(frames).to(cuda_device, torch.float32),
+                                  levels, {})
+    plain = {"survivors": []}
+    want = card._stages_plain(on_card, plain)
+    fed = {}
+    launches = haar_cascade.haar_cascade.launches
+    rows = card._stages_kernel(on_card, fed)
+    assert haar_cascade.haar_cascade.launches == launches + 1
+    assert torch.equal(rows.cpu(), want.cpu())
+    assert card._survivors(fed["counts"].tolist()) == plain["survivors"]
+    if kind == "blank":
+        assert plain["survivors"] == [(3, 0)] and rows.shape[0] == 0
+    if kind == "frontal":
+        assert len(plain["survivors"]) == 5 and plain["survivors"][-1][1] > 0
 
 
 @pytest.mark.gpu

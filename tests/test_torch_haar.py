@@ -21,6 +21,8 @@ from face_detection_recognization_pca_tpu.detect import haar as jhaar
 from face_detection_recognization_pca_tpu_torch import bench
 from face_detection_recognization_pca_tpu_torch.detect import haar as thaar
 from face_detection_recognization_pca_tpu_torch.io import native
+from face_detection_recognization_pca_tpu_torch.models.enhanced import PROFILE_CASCADE
+from face_detection_recognization_pca_tpu_torch.ops import haar_cascade as thc
 from face_detection_recognization_pca_tpu_torch.ops.resize import resize_bilinear
 from haar_scenes import frames180, numpy_cascade_accepts, numpy_cascade_margins, scene
 
@@ -324,6 +326,191 @@ def test_device_none_needs_cuda(cascades):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             thaar.HaarDetector(cascades[1])
+
+
+# ---------------------------------------------------------------------------
+# The tables of csrc/haar_cascade.cu
+# ---------------------------------------------------------------------------
+
+CASCADE_FILES = {"frontal": PACKAGED_XML, "profile": PROFILE_CASCADE}
+
+
+def walk_packed(packed, batch):
+    """Every window's verdict and the windows past each boundary, read from
+    ``packed`` as the kernel reads it: each corner at the thread's base plus
+    the stump's offset in the tile of its stride, the tile element found
+    back from that place by the layout of ``thc.corner_offset``; float64
+    rect and stage sums, a window leaving at its first failed stage."""
+    common = packed.common.numpy()
+    n_rects = common.view(np.int32)[:, 6]
+    weights, leaves = common[:, :3].astype(np.float64), common[:, 4:6].astype(np.float64)
+    thresholds = common[:, 3].astype(np.float64)
+    stages = packed.stages.numpy()
+    stage_thresholds = stages.view(np.float32)[:, 2].astype(np.float64)
+    bounds = packed.bounds.numpy()
+    integrals, norms = batch.integrals.numpy(), batch.norms.numpy()
+    passed = np.zeros(len(norms), dtype=bool)
+    counts = np.zeros(len(bounds), dtype=np.int64)
+    for li, (_, sh, sw, step) in enumerate(batch.levels):
+        ny, nx = batch.grids[li]
+        ii = integrals[batch.int_starts[li]:batch.int_starts[li + 1]].reshape(-1, sh + 1, sw + 1)
+        b, iy, ix = (a.ravel() for a in np.meshgrid(np.arange(batch.frames), np.arange(ny),
+                                                      np.arange(nx), indexing="ij"))
+        rows, cols = thc.plane_shape(step, packed.window)
+        tile_y, tile_x = iy // thc.TILE * thc.TILE * step, ix // thc.TILE * thc.TILE * step
+        base = iy % thc.TILE * cols + ix % thc.TILE
+        offsets = packed.offsets.numpy()[thc.STRIDES.index(step)]
+        nf = norms[batch.win_starts[li]:batch.win_starts[li + 1]]
+        alive = np.arange(len(nf))
+
+        def corner(off):
+            plane, rest = np.divmod(base[alive] + off, rows * cols)
+            r, c = np.divmod(rest, cols)
+            return ii[b[alive], tile_y[alive] + r * step + plane // step,
+                      tile_x[alive] + c * step + plane % step]
+
+        lo = 0
+        for g, hi in enumerate(bounds):
+            for s in range(lo, hi):
+                total = np.zeros(len(alive))
+                for k in range(stages[s, 0], stages[s, 1]):
+                    rect_sum = np.zeros(len(alive))
+                    for r in range(n_rects[k]):
+                        a_, b_, c_, d_ = (corner(o) for o in offsets[k, 4 * r:4 * r + 4])
+                        rect_sum = rect_sum + weights[k, r] * ((d_ - b_) - (c_ - a_))
+                    total += np.where(rect_sum < thresholds[k] * nf[alive], leaves[k, 0],
+                                      leaves[k, 1])
+                alive = alive[total >= stage_thresholds[s]]
+            counts[g] += len(alive)
+            lo = hi
+        passed[batch.win_starts[li] + alive] = True
+    return passed, counts
+
+
+@pytest.mark.parametrize("which", ["frontal", "profile"])
+def test_the_packed_cascade_walks_to_the_plain_stage_verdicts(frames, which):
+    """Every window of the 180 x 240 frames, both packaged cascades: the
+    walk over the kernel's tables accepts exactly the windows that the
+    plain stage groups (``_stages_pass``) accept, and counts the plain
+    path's survivors at every boundary."""
+    det = thaar.HaarDetector(thaar.load_cascade(CASCADE_FILES[which]), device=CPU)
+    packed = thc.pack_cascade(det.cascade, det._bounds(), CPU)
+    levels = thaar._pyramid_levels(180, 240, det.cascade.window_size, 1.1, (30, 30), None)
+    assert {lv[3] for lv in levels} == {1, 2}
+    handle = {"survivors": []}
+    batch = det._integrals(torch.from_numpy(frames.astype(np.float32)), levels, handle)
+    want = det._stages_plain(batch, handle)
+    passed, counts = walk_packed(packed, batch)
+    t = thc.level_table(batch.frames, levels, batch.grids, batch.int_starts, batch.win_starts,
+                        det.cascade.window_size, CPU).table
+    idx = torch.from_numpy(np.flatnonzero(passed))
+    level, frame, y, x = thaar._window_coords(idx, t[1], t[3], t[4], t[5])
+    assert torch.equal(torch.stack([frame, level, y, x], dim=1).to(torch.int32), want)
+    assert len(want) > 0 and len(handle["survivors"]) == len(det._bounds())
+    assert handle["survivors"] == list(zip(det._bounds(), counts.tolist()))
+
+
+@pytest.mark.parametrize("which", ["frontal", "profile"])
+def test_stage_sums_are_exact_in_any_order(which):
+    """The premise by which the kernel's warp sums, its thread sums and the
+    plain path's GEMM give one verdict: within every stage, the float32
+    leaves are multiples of one power of two whose count, summed in
+    magnitude, fits in float64's 53 bits."""
+    from fractions import Fraction
+
+    cascade = thaar.load_cascade(CASCADE_FILES[which])
+    for s in range(cascade.n_stages):
+        a, b = cascade.stage_offsets[s], cascade.stage_offsets[s + 1]
+        leaves = [Fraction(float(v)) for v in np.concatenate([cascade.leaf0[a:b],
+                                                              cascade.leaf1[a:b]])]
+        unit = max(v.denominator for v in leaves)
+        bound = sum(max(abs(leaves[i]), abs(leaves[i + b - a])) for i in range(b - a))
+        assert (bound * unit).numerator.bit_length() <= 53, s
+
+
+def test_the_level_table_of_a_544p_batch():
+    """16 frames of 960 x 544: 30 levels, 11,791,824 windows, 218 MB of
+    float64 integrals, cut into tiles of 16 x 16 windows per level and
+    frame; each level's first tile follows the last one's."""
+    levels = thaar._pyramid_levels(544, 960, (24, 24), 1.1, (30, 30), None)
+    grids = [((sh - 24) // st + 1, (sw - 24) // st + 1) for (_, sh, sw, st) in levels]
+    ints = np.cumsum([0] + [16 * (sh + 1) * (sw + 1) for (_, sh, sw, _) in levels])
+    wins = np.cumsum([0] + [16 * ny * nx for ny, nx in grids])
+    lt = thc.level_table(16, levels, grids, ints, wins, (24, 24), CPU)
+    tiles = [16 * -(-ny // 16) * -(-nx // 16) for ny, nx in grids]
+    assert (len(levels), lt.windows, lt.integral_size, lt.tiles) == (
+        30, 11_791_824, 27_293_296, sum(tiles))
+    assert lt.table.shape == (8, 30)
+    assert lt.table[7].tolist() == np.cumsum([0] + tiles[:-1]).tolist()
+    assert levels[0][1:] == (409, 721, 2)  # the first window of 30 px: factor 1.1^3
+    assert lt.table[:, 0].tolist() == [0, 0, 410 * 722, 193, 349, 2, 722, 0]
+
+
+def _kernel_args(cascade, **change):
+    """Arguments of ``thc.haar_cascade`` for one 60 x 80 frame, on the CPU,
+    with ``change`` put in."""
+    levels = [(1.0, 60, 80, 2)]
+    grids = [((60 - 24) // 2 + 1, (80 - 24) // 2 + 1)]
+    table = thc.level_table(1, levels, grids, [0, 61 * 81], [0, grids[0][0] * grids[0][1]],
+                            (24, 24), CPU)
+    args = {"integrals": torch.zeros(61 * 81, dtype=torch.float64),
+            "norms": torch.ones(grids[0][0] * grids[0][1], dtype=torch.float64),
+            "levels": table, "packed": thc.pack_cascade(cascade, [3, 5, 25], CPU)}
+    args.update(change)
+    return args
+
+
+def _bad_weight(cascade):
+    rects = cascade.rects.copy()
+    rects[cascade.stump_feature[7], 0, 4] = 0.1
+    return dataclasses.replace(cascade, rects=rects)
+
+
+def _rect_outside(cascade):
+    rects = cascade.rects.copy()
+    rects[cascade.stump_feature[0], 0, 0] = 20
+    return dataclasses.replace(cascade, rects=rects)
+
+
+@pytest.mark.parametrize("case, error, match", [
+    ("cpu", ValueError, "CUDA"),
+    ("float32", TypeError, "float64"),
+    ("short_norms", ValueError, "norms has shape"),
+    ("strided", ValueError, "contiguous"),
+    ("stride_3", ValueError, "stride 3"),
+    ("starts", ValueError, "buffer starts"),
+    ("grid", ValueError, "leaves the"),
+    ("weight", ValueError, "float32 value"),
+    ("rect", ValueError, "outside"),
+    ("bounds", ValueError, "bounds"),
+])
+def test_the_wrapper_refuses_what_the_kernel_does_not_take(cascades, case, error, match):
+    cascade = cascades[1]
+    with pytest.raises(error, match=match):
+        if case == "cpu":
+            thc.haar_cascade(**_kernel_args(cascade))
+        elif case == "float32":
+            thc.haar_cascade(**_kernel_args(cascade, integrals=torch.zeros(61 * 81)))
+        elif case == "short_norms":
+            thc.haar_cascade(**_kernel_args(cascade, norms=torch.ones(5, dtype=torch.float64)))
+        elif case == "strided":
+            norms = torch.ones(2 * 19 * 29, dtype=torch.float64)[::2]
+            thc.haar_cascade(**_kernel_args(cascade, norms=norms))
+        elif case == "stride_3":
+            thc.level_table(1, [(1.0, 60, 80, 3)], [(13, 19)], [0, 61 * 81], [0, 13 * 19],
+                            (24, 24), CPU)
+        elif case == "starts":
+            thc.level_table(2, [(1.0, 60, 80, 2)], [(19, 29)], [0, 61 * 81], [0, 19 * 29],
+                            (24, 24), CPU)
+        elif case == "grid":
+            thc.level_table(1, [(1.0, 60, 80, 2)], [(20, 29)], [0, 61 * 81], [0, 20 * 29],
+                            (24, 24), CPU)
+        elif case == "weight":
+            thc.pack_cascade(_bad_weight(cascade), [3, 25], CPU)
+        elif case == "rect":
+            thc.pack_cascade(_rect_outside(cascade), [3, 25], CPU)
+        else:
+            thc.pack_cascade(cascade, [5, 3, 25], CPU)
 
 
 # ---------------------------------------------------------------------------
