@@ -2,7 +2,13 @@
 ``BENCHMARK.json`` points the real cells at configurations and traffic cut
 to a size the CPU runs in seconds, written into a temporary directory.
 The harness, the drivers, the metric readers and the reference are the
-real ones; run with ``python -m pytest benchmark/tests -q``."""
+real ones; run with ``python -m pytest benchmark/tests -q``.
+
+The tiny sizes are data, found by name: each configuration of
+``BENCHMARK.json`` has ``tiny/configs/<config name>.json`` and each traffic
+mix ``tiny/traffic/<traffic name>.json`` beside this file, whose keys
+replace the real file's.  So a new cell needs new files and additions to
+``BENCHMARK.json`` only."""
 
 from __future__ import annotations
 
@@ -18,35 +24,31 @@ import pytest
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-TINY_TRACKER = {"frame": [200, 256], "window": 64, "template": 32, "components": 16,
-                "gallery": 32, "modes_per_axis": 4, "limits": {"ncc_err": 1e-5}}
-TINY_HAAR = {"frame": [180, 240], "crop_sides": [40, 80], "components": 8,
-             "limits": {"box_err": 5.0, "recog_err": 1e-4}}
-TINY_TRAFFIC = {
-    "s512": {"streams": 4, "pool_steps": 4, "step_px": [9, 12], "plant_sd": 8.0, "profile_calls": 3,
-             "limits": {"match_err": 3e-5}},
-    "s64": {"streams": 2, "pool_steps": 2, "step_px": [9, 12], "plant_sd": 8.0, "profile_calls": 3,
-            "limits": {"match_err": 3e-5}},
-    "faces1": {"pool_frames": 4, "batch": 2, "faces_per_frame": 1, "sides": [40, 80],
-               "profile_calls": 2},
-}
+TINY = Path("benchmark") / "tests" / "tiny"
 
 
-def write_root(path: Path) -> Path:
-    """A root with the real ``BENCHMARK.json`` cut to tiny data files."""
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    (path / "benchmark" / "configs").mkdir(parents=True)
-    (path / "benchmark" / "traffic").mkdir(parents=True)
-    for entry, tiny in zip(bench["configs"], (TINY_TRACKER, TINY_HAAR)):
-        config = json.loads((ROOT / entry["file"]).read_text())
-        config.update(tiny)
-        if config["driver"] == "haar_scan":
-            for person in config["persons"]:
-                person["crops"] = 24
-        entry["file"] = f"benchmark/configs/{entry['name']}.json"
-        (path / entry["file"]).write_text(json.dumps(config))
-    for name, traffic in TINY_TRAFFIC.items():
-        (path / "benchmark" / "traffic" / f"{name}.json").write_text(json.dumps(traffic))
+def overlaid(source: Path, real: str, tiny: Path) -> dict:
+    """The file ``real`` of the checkout ``source`` with the keys of its
+    tiny overlay ``tiny`` (relative to ``source``) put over its own."""
+    if not (source / tiny).is_file():
+        raise FileNotFoundError(f"{tiny} is missing: {real} has no tiny overlay")
+    data = json.loads((source / real).read_text())
+    data.update(json.loads((source / tiny).read_text()))
+    return data
+
+
+def write_root(path: Path, source: Path = ROOT) -> Path:
+    """A root with the ``BENCHMARK.json`` of the checkout ``source``, every
+    configuration and traffic file it names cut by its tiny overlay."""
+    bench = json.loads((source / "BENCHMARK.json").read_text())
+    files = {e["file"]: overlaid(source, e["file"], TINY / "configs" / f"{e['name']}.json")
+             for e in bench["configs"]}
+    for name in dict.fromkeys(w["traffic"] for w in bench["workloads"]):
+        real = f"benchmark/traffic/{name}.json"
+        files[real] = overlaid(source, real, TINY / "traffic" / f"{name}.json")
+    for real, data in files.items():
+        (path / real).parent.mkdir(parents=True, exist_ok=True)
+        (path / real).write_text(json.dumps(data))
     (path / "BENCHMARK.json").write_text(json.dumps(bench))
     return path
 
