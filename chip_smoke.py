@@ -246,7 +246,18 @@ the event-loop ones; ``b512``, ``d16384``, ``b768_d16384`` and
 ``b32_d9216`` hold the same at the headline's, the multi-model scan's,
 geom256's and the gloo tracker ranks' shapes, taken in their phases, and
 ``shapes`` all six taken in phase 3; ``fills`` counts the calls whose
-crops came by TMA and by element loads.
+crops came by TMA and by element loads.  The tracker's NCC kernel
+(``csrc/ncc_locate.cu``) has its launches by path (one a step and shard
+in the tracker slice, the headline, the tracked scan, the CLI bench and
+the mesh and cross-process trackers, none in geom256, whose 256 windows
+take the plain route), and, from the ``[ncc]`` phase at the s512 and s64
+cells' steps (512 and 64 windows of 192, the template of 96, on the
+step's own operands and windows): ``ms`` and ``plain_ms``, the
+device-only (CUDA graph) times of the kernel and of the plain route,
+``event_loop_ms`` and ``plain_event_loop_ms`` the same around Python
+calls, ``library_ms`` and ``library_device_ms`` the numerator alone by
+``torch.fft``, and ``bound_ms`` and ``share`` by
+``benchmark/metrics/ncc_roofline.bound``, with S 64's under ``s64``.
 The last line is ``{"ok": true, "device":
 {...}}``.  Any failed check raises,
 so the script exits nonzero without that line, as it does when PyTorch
@@ -298,7 +309,7 @@ from face_detection_recognization_pca_tpu_torch.models.eigenfaces import (
     train_v1,
     train_v2,
 )
-from face_detection_recognization_pca_tpu_torch.ops import _build, haar_cascade
+from face_detection_recognization_pca_tpu_torch.ops import _build, haar_cascade, ncc_locate
 from face_detection_recognization_pca_tpu_torch.ops import resize as port_resize
 from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
     LinearizedModel,
@@ -323,7 +334,10 @@ from face_detection_recognization_pca_tpu_torch.parallel import (
     snapshot_pca_sharded,
 )
 from face_detection_recognization_pca_tpu_torch.parallel.distributed import GROUP_VARS
-from face_detection_recognization_pca_tpu_torch.parallel.multistream import slice_windows
+from face_detection_recognization_pca_tpu_torch.parallel.multistream import (
+    MultiStreamRecognizer,
+    slice_windows,
+)
 from face_detection_recognization_pca_tpu_torch.parallel.sharding import _gather_chunks
 from face_detection_recognization_pca_tpu_torch.ops.preprocess import preprocess_crops
 from face_detection_recognization_pca_tpu_torch.ops.resize import resize_bilinear
@@ -417,6 +431,20 @@ HAAR_KERNEL = {
     "source": "face_detection_recognization_pca_tpu_torch/csrc/haar_cascade.cu",
     "replaces": None,
 }
+
+
+# The tracker's NCC kernel, beside KERNELS in the closing JSON line: its
+# launches by path, which the phases that run the tracker's step fill in,
+# and its figures at the tracker cells' steps of NCC_STREAMS windows.
+NCC_STREAMS = (512, 64)
+NCC_LOOP_CALLS, NCC_GRAPH_CALLS = 50, 20
+NCC_KERNEL = {
+    "name": "ncc_locate",
+    "route": "cuda",
+    "source": "face_detection_recognization_pca_tpu_torch/csrc/ncc_locate.cu",
+    "replaces": None,
+}
+NCC_BY_PATH = {}
 
 
 def check(cond: bool, what: str) -> None:
@@ -728,6 +756,99 @@ def phase_kernel_vs_plain(dev) -> dict:
     return {"max_abs_err": max_err, **timing, "b512": shapes["b512_d9216"], "shapes": shapes}
 
 
+def _ncc_figures(dev, streams: int) -> dict:
+    """The NCC kernel at one tracker step of ``streams`` 1080p streams: the
+    tracker's own operands (``step_operands``, through the recognizer) and
+    the first frame's windows at the planted faces.  The score at the
+    kernel's place must be the plain route's within CONF_ATOL, and the
+    place the plain route's wherever its two best scores lie farther apart;
+    then the kernel, the plain route and the numerator alone by
+    ``torch.fft`` (cuFFT), timed in turns by CUDA events around Python
+    calls and around replays of a CUDA graph of calls (the card alone,
+    without the wrapper's host time between launches), and the bound."""
+    ncc_bound = importlib.import_module("benchmark.metrics.ncc_roofline")
+    h, w = bench.SIZES["1080p"]
+    frames, gallery, face, plants = bench.tracker_assets(streams, (h, w), 1, SEED, dev)
+    model, _ = train_v1(gallery, n_components=bench.N_COMPONENTS)
+    msr = MultiStreamRecognizer(model, face, window=bench.WIN)
+    ops = msr._ops[msr.device]
+    check(ops.spectrum is not None, f"S {streams}: the step's operands take the kernel's route")
+    boxes0 = np.stack([plants[0, :, 1], plants[0, :, 0], np.zeros(streams), np.zeros(streams)],
+                      1).astype(np.int32)
+    windows = slice_windows(frames[0], msr.init_state(streams, (h, w), boxes0).origin, ops.win)
+    mean = windows.mean()
+    win, tpl = ops.win, ops.tpl
+    out = win - tpl + 1
+    t0 = np.asarray(face, np.float32)
+    t0 = t0 - t0.mean()
+    corr, band = ncc_locate.plain_operands(t0, win, dev)
+
+    def kernel():
+        return ncc_locate.ncc_locate(windows, mean, ops.spectrum, ops.t_energy, tpl)
+
+    def plain():
+        with port_device.exact_float32():
+            return ncc_locate.ncc_locate_plain(windows, mean, corr, band, ops.t_energy, tpl)
+
+    t_spec = torch.fft.rfft2(torch.from_numpy(t0).to(dev), s=(win, win)).conj()
+
+    def library():
+        return torch.fft.irfft2(torch.fft.rfft2(windows - mean) * t_spec, s=(win, win))[
+            :, :out, :out]
+
+    launches = ncc_locate.ncc_locate.launches
+    ly, lx, conf = kernel()
+    check(ncc_locate.ncc_locate.launches == launches + 1, "one ncc_locate launch a call")
+    with port_device.exact_float32():
+        scores = ncc_locate.ncc_scores_plain(windows, mean, corr, band, ops.t_energy, tpl)
+        num = corr(windows - mean)
+    flat = scores.reshape(streams, -1)
+    place = (ly * out + lx).long()
+    at = flat.gather(1, place[:, None])[:, 0]
+    top2 = flat.topk(2, dim=1).values
+    apart = top2[:, 0] - top2[:, 1] > CONF_ATOL
+    conf_err = float((conf - at).abs().max())
+    lib_err = float((library() - num).abs().max() / num.abs().max())
+    check(conf_err <= CONF_ATOL, f"S {streams}: the kernel's score at its place is the plain "
+          f"route's within {CONF_ATOL}: {conf_err}")
+    check(torch.equal(place[apart], flat.argmax(1)[apart]),
+          f"S {streams}: the kernel's places are the plain route's where its two best scores "
+          f"lie apart")
+    check(lib_err <= 1e-5, f"S {streams}: torch.fft's numerator is the plain route's: {lib_err}")
+    turns = bench.time_in_turns({"plain": plain, "kernel": kernel, "library": library},
+                                ("plain", "kernel", "library", "library", "kernel", "plain"),
+                                loop_iters=NCC_LOOP_CALLS, graph_calls=NCC_GRAPH_CALLS)
+    avg = {clock: {name: sum(v) / len(v) for name, v in t.items()} for clock, t in turns.items()}
+    b = ncc_bound.bound(streams, win, tpl)
+    bound_ms = b.seconds * 1e3
+    by_bytes = b.bytes / ncc_bound.roofline.PEAK_BYTES >= b.flops / ncc_bound.roofline.PEAK_FLOPS
+    result = {"streams": streams, "win": win, "tpl": tpl, "ms": avg["device"]["kernel"],
+              "event_loop_ms": avg["loop"]["kernel"], "plain_ms": avg["device"]["plain"],
+              "plain_event_loop_ms": avg["loop"]["plain"], "library_ms": avg["loop"]["library"],
+              "library_device_ms": avg["device"]["library"], "bound_ms": bound_ms,
+              "bound_by": "bytes" if by_bytes else "operations",
+              "share": bound_ms / avg["device"]["kernel"], "max_conf_err": conf_err,
+              "places_apart": int(apart.sum()), "library_rel_err": lib_err}
+    fmt = lambda v: "/".join(f"{x:.5f}" for x in v)  # noqa: E731
+    print(f"[ncc] S {streams}, window {win}, template {tpl}, the step's operands: score at the "
+          f"kernel's place within {conf_err:.3g} of the plain route's, places equal where its two "
+          f"best lie apart ({int(apart.sum())} of {streams}); ms per call: device-only (CUDA graph "
+          f"of {NCC_GRAPH_CALLS}) kernel {fmt(turns['device']['kernel'])}, plain "
+          f"{fmt(turns['device']['plain'])}, torch.fft numerator {fmt(turns['device']['library'])}"
+          f"; event loop kernel {fmt(turns['loop']['kernel'])}, plain {fmt(turns['loop']['plain'])}"
+          f", torch.fft numerator {fmt(turns['loop']['library'])}; bound {bound_ms:.5f} ms "
+          f"({result['bound_by']}), share {result['share']:.4f}; {card_and_limit()}")
+    return result
+
+
+def phase_ncc(dev) -> dict:
+    """The NCC kernel at the s512 and s64 cells' steps; the figures of the
+    first, with the second's under ``s64``."""
+    figures = {s: _ncc_figures(dev, s) for s in NCC_STREAMS}
+    torch.cuda.empty_cache()
+    return {**figures[NCC_STREAMS[0]], "s64": figures[NCC_STREAMS[1]]}
+
+
 def phase_slice(dev, card: str) -> int:
     h, w = bench.SIZES["1080p"]
     t0 = time.perf_counter()
@@ -737,7 +858,7 @@ def phase_slice(dev, card: str) -> int:
     print(f"[slice] assets + training {time.perf_counter() - t0:.2f} s; frames "
           f"{tuple(frames.shape)} {frames.numel() * 4 / 1e9:.2f} GB on {card}")
 
-    fused_match.launches = gallery_match.launches = 0
+    fused_match.launches = gallery_match.launches = ncc_locate.ncc_locate.launches = 0
     state = msr.init_state(STREAMS, (h, w), boxes0)
     outs = []
     for f in range(BATCHES):
@@ -749,6 +870,7 @@ def phase_slice(dev, card: str) -> int:
     launches = fused_match.launches
 
     check(launches == 2 * BATCHES, f"fused_match launched {launches} times, want {2 * BATCHES}")
+    check(ncc_locate.ncc_locate.launches == launches, "one ncc_locate launch a step")
     check(gallery_match.launches == 0, "the tracker does not use the gallery kernel")
     check(bench.planted_exact(outs, plants), "process_batch planted-exact")
     check(bench.planted_exact(wout, plants), "process_window planted-exact")
@@ -783,6 +905,8 @@ def phase_slice(dev, card: str) -> int:
           "bench.tracker published both fps")
     check(bench_launches == want, f"bench.tracker launched fused_match {bench_launches}, "
           f"want {want}")
+    NCC_BY_PATH["tracker"] = ncc_locate.ncc_locate.launches
+    check(NCC_BY_PATH["tracker"] == launches + bench_launches, "one ncc_locate launch a step")
     return launches + bench_launches
 
 
@@ -1061,10 +1185,11 @@ def phase_gallery_slice(dev, card: str) -> tuple:
 def phase_headline(dev, card: str) -> tuple:
     """Phase 7; returns the fused kernel's launches in the headline and in
     geom256, and its times at geom256's shape."""
-    fused_match.launches = gallery_match.launches = 0
+    fused_match.launches = gallery_match.launches = ncc_locate.ncc_locate.launches = 0
     t0 = time.perf_counter()
     result = bench.headline(streams=HEADLINE_STREAMS, t_frames=HEADLINE_BATCHES, device=dev)
     launches = fused_match.launches
+    NCC_BY_PATH["headline"] = ncc_locate.ncc_locate.launches
     detail = result["detail"]
     print(f"[headline] {result['metric']}: {result['value']} {result['unit']}; self-check "
           f"{detail['self_check']} (planted offsets exact {detail['planted_offset_exact']}, "
@@ -1089,6 +1214,7 @@ def phase_headline(dev, card: str) -> tuple:
           "the headline ran at its full batch")
     check(launches >= 1 and launches == detail["fused_match_launches"],
           f"the headline launched fused_match {launches} times")
+    check(NCC_BY_PATH["headline"] == launches, "one ncc_locate launch a headline dispatch")
     check(gallery_match.launches == 0, "the headline does not use the gallery kernel")
     check(detail["device_ms"] is not None, "torch.profiler saw the headline's kernels")
     check(len(detail["window_step_ms"]) == len(detail["event_step_ms"]) == 3,
@@ -1097,10 +1223,11 @@ def phase_headline(dev, card: str) -> tuple:
 
     # Window 256, template 128: 24 streams x 32 frame batches, one
     # fused_match launch at B = 768, D = 16384 per dispatch.
-    fused_match.launches = 0
+    fused_match.launches = ncc_locate.ncc_locate.launches = 0
     t0 = time.perf_counter()
     g256 = bench.headline_geom256(device=dev)
     g256_launches = fused_match.launches
+    NCC_BY_PATH["geom256"] = ncc_locate.ncc_locate.launches
     print(f"[headline] geom256 (window 256, template 128, {G256_STREAMS} streams x 32 frame "
           f"batches of 1080p): {json.dumps(g256)}; fused_match launches {g256_launches}; "
           f"phase part {time.perf_counter() - t0:.2f} s, peak memory "
@@ -1108,6 +1235,7 @@ def phase_headline(dev, card: str) -> tuple:
     check(g256["g256_self_check"] == "ok" and g256["g256_fps"] > 0,
           f"geom256 self-check: {g256['g256_self_check']}")
     check(g256_launches >= 1, "geom256 launched fused_match")
+    check(NCC_BY_PATH["geom256"] == 0, "geom256's 256 windows take the plain route")
     torch.cuda.empty_cache()
     return launches, g256_launches, hold_fused_at(dev, G256_STREAMS * 32, 128 * 128, "geom256")
 
@@ -1179,7 +1307,7 @@ def phase_scan(dev, card: str) -> int:
         write_detection_json(
             DetectionFile("synthetic", SCAN_FRAMES, 30.0, 1, "", [prior]),
             os.path.join(person_dir, f"{SCAN_PERSON}_faces_detection.json"))
-        fused_match.launches = gallery_match.launches = 0
+        fused_match.launches = gallery_match.launches = ncc_locate.ncc_locate.launches = 0
         t0 = time.perf_counter()
         records = scan_batches_tracked(
             batches(), VideoMeta(w, h, 30.0, SCAN_FRAMES), SCAN_PERSON, lock_dir=lock_dir,
@@ -1198,6 +1326,8 @@ def phase_scan(dev, card: str) -> int:
     tm_conf = min(r["template_match_confidence"] for r in records)
     check(conf > 0.999 and tm_conf > 0.99, f"planted face scores ~1: {conf}, {tm_conf}")
     check(launches == SCAN_FRAMES, f"fused_match launched {launches} times, want {SCAN_FRAMES}")
+    NCC_BY_PATH["scan"] = ncc_locate.ncc_locate.launches
+    check(NCC_BY_PATH["scan"] == SCAN_FRAMES, "one ncc_locate launch a tracked frame")
     check(gallery_match.launches == 0, "the scan does not use the gallery kernel")
     print(f"[scan] planted-exact over {SCAN_FRAMES} frames in batches of {SCAN_BATCH}; "
           f"fused_match launches {launches}; min conf {conf:.6f}, min template conf "
@@ -1855,7 +1985,7 @@ def phase_flow(dev, card: str) -> int:
     frames, plants, eval_crops, eval_ids = bench.pipeline_assets(FLOW_FRAMES, (h, w), FLOW_SEED)
     person = f"person{bench.PIPELINE_PERSON}"
     det = haar.HaarDetector(device=dev)
-    fused_match.launches = gallery_match.launches = 0
+    fused_match.launches = gallery_match.launches = ncc_locate.ncc_locate.launches = 0
     with tempfile.TemporaryDirectory() as lock_dir:
         t1 = time.perf_counter()
         out = run_pipeline_frames(frames, VideoMeta(w, h, 30.0, FLOW_FRAMES), person,
@@ -1893,8 +2023,8 @@ def phase_flow(dev, card: str) -> int:
               or abs(b["mean_confidence"] - gate) <= CONF_ATOL,
               f"eval crop {j}: card {a}, CPU {b}")
     check(eval_err <= CONF_ATOL, f"evaluate_model: max|dconf| {eval_err} against the CPU")
-    check(fused_match.launches == 0 and gallery_match.launches == 0,
-          "the flow launches no hand-written kernel")
+    check(fused_match.launches == 0 and gallery_match.launches == 0
+          and ncc_locate.ncc_locate.launches == 0, "the flow launches no hand-written kernel")
     print(f"[pipeline] run_pipeline_frames on {FLOW_FRAMES} BGR 1080p frames of {person}: "
           f"{out['faces_detected']} faces, n_components {out['n_components']}, a record per frame "
           f"with the planted box and name (min confidence "
@@ -1908,7 +2038,7 @@ def phase_flow(dev, card: str) -> int:
     # fdrp-torch bench --streams 4 (256 frames per dispatch) three times:
     # each reading's fps, and its windows on the host clock and by CUDA
     # events, so a slow reading shows which clock saw it.
-    fused_match.launches = gallery_match.launches = 0
+    fused_match.launches = gallery_match.launches = ncc_locate.ncc_locate.launches = 0
     readings = []
     t2 = time.perf_counter()
     for _ in range(CLI_BENCH_READINGS):
@@ -1941,6 +2071,8 @@ def phase_flow(dev, card: str) -> int:
     check(launches >= CLI_BENCH_READINGS
           and launches == sum(r["detail"]["fused_match_launches"] for r in readings),
           f"cli bench launched fused_match {launches} times")
+    NCC_BY_PATH["cli_bench"] = ncc_locate.ncc_locate.launches
+    check(NCC_BY_PATH["cli_bench"] == launches, "one ncc_locate launch a cli bench dispatch")
 
     def spread(values) -> str:
         if not values:
@@ -2070,15 +2202,18 @@ def distributed_worker(mode: str, tmp: str) -> int:
         msr, frames, plants, boxes0, _ = bench.tracker_recognizer(
             STREAMS, bench.SIZES["1080p"], DIST_TRACKER_BATCHES[mode], SEED, dev, mesh,
             tracker_model)
-        fused_match.launches = 0
+        fused_match.launches = ncc_locate.ncc_locate.launches = 0
         tracked = _track_case(msr, frames, boxes0)
         torch.cuda.synchronize()
         tracker_launches = fused_match.launches
+        ncc_launches = ncc_locate.ncc_locate.launches
         steps = frames.shape[0]
         owned = mesh.axis_owners("data").count(rank)
         check(tracker_launches == 2 * steps * owned,
               f"{mode} rank {rank}: fused_match launched {tracker_launches} times for the tracker, "
               f"want {2 * steps * owned}")
+        check(ncc_launches == tracker_launches,
+              f"{mode} rank {rank}: ncc_locate launched {ncc_launches} times, one a step and shard")
         check(bench.planted_exact(tracked["batch"], plants)
               and bench.planted_exact(tracked["window"], plants),
               f"{mode} rank {rank}: the tracker planted-exact")
@@ -2135,6 +2270,7 @@ def distributed_worker(mode: str, tmp: str) -> int:
         print("RESULT:" + json.dumps({"rank": rank, "launches": launches, "join_s": join_s,
                                       "ms": ms, "gather_ms": gather_ms,
                                       "tracker_launches": tracker_launches,
+                                      "ncc_launches": ncc_launches,
                                       "tracker_step_ms": step_ms,
                                       "window_gather_ms": window_gather_ms}), flush=True)
         if mode == "gloo":
@@ -2240,6 +2376,7 @@ def phase_distributed(dev, card: str) -> tuple:
     # The tracker slice's references: a model trained here (the ranks load
     # it), each mode's frames through a one-process mesh of its shape.
     tracker_model, tracker_refs = None, {}
+    ncc_locate.ncc_locate.launches = 0
     for mode, shape in DIST_MESHES.items():
         msr, frames, plants, boxes0, tracker_model = bench.tracker_recognizer(
             STREAMS, bench.SIZES["1080p"], DIST_TRACKER_BATCHES[mode], SEED, dev,
@@ -2250,6 +2387,12 @@ def phase_distributed(dev, card: str) -> tuple:
               f"one-process {shape} tracker planted-exact")
         del frames, msr
     torch.cuda.synchronize()
+    # One launch a step and data shard: process_batch and process_window over each mode's steps.
+    want = sum(2 * DIST_TRACKER_BATCHES[mode] * shape[0] for mode, shape in DIST_MESHES.items())
+    NCC_BY_PATH["tracker_distributed"] = ncc_locate.ncc_locate.launches
+    check(NCC_BY_PATH["tracker_distributed"] == want,
+          f"the one-process meshes launched ncc_locate {ncc_locate.ncc_locate.launches} times, "
+          f"want {want}")
     print(f"[distributed] one-process references on (1, 8) and (2, 4) meshes of {dev}, the "
           f"tracker's planted-exact: {time.perf_counter() - t0:.2f} s")
     # Each gloo rank tracks half the streams: one launch at B = 32 per step.
@@ -2291,6 +2434,7 @@ def phase_distributed(dev, card: str) -> tuple:
                 check(_same_track(tracked, tracker_refs[mode]),
                       f"{mode} rank {rank} tracker: bit for bit the one-process {shape} mesh's")
                 tracker_launches += result["tracker_launches"]
+                NCC_BY_PATH["tracker_distributed"] += result["ncc_launches"]
                 if mode == "gloo":
                     check(f"multi-host: process {rank}/2, 8 global devices" in text
                           and "dryrun_multichip OK: mesh data=2 x model=4" in text,
@@ -2360,6 +2504,7 @@ def main() -> int:
     card = torch.cuda.get_device_name(0)
     sass = phase_build()
     fused = phase_kernel_vs_plain(dev)
+    ncc = phase_ncc(dev)
     fused_launches = phase_slice(dev, card)
     torch.cuda.empty_cache()
     gallery = phase_gallery_vs_plain(dev)
@@ -2395,6 +2540,8 @@ def main() -> int:
          "sass": sass["gallery_match"]},
         {**HAAR_KERNEL, "launches": sum(haar_figures["launches_by_path"].values()),
          **haar_figures},
+        {**NCC_KERNEL, "launches": sum(NCC_BY_PATH.values()), "launches_by_path": NCC_BY_PATH,
+         **ncc},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

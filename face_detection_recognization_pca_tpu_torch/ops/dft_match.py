@@ -8,7 +8,8 @@
 The cos/sin matrices and the kernel spectrum are built in numpy exactly
 as the JAX package builds them (float64 angles cast to float32,
 ``np.fft.fft2`` in float64); the products are plain ``torch.matmul``.
-Whether cuFFT beats this form on the GPU is still to be measured.
+On the card the tracker's numerator is the FFT of
+:mod:`.ncc_locate`'s kernel; this form is its plain route.
 """
 
 from __future__ import annotations

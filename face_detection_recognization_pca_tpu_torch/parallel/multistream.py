@@ -1,8 +1,10 @@
 """Multi-stream guided detect + recognize (port of ``parallel/multistream.py``).
 
 Per stream and frame: slice the search window at the tracked origin,
-score TM_CCOEFF_NORMED against the template (DFT-matmul correlation plus
-banded-matmul window statistics), crop the best hit, and recognize it
+score TM_CCOEFF_NORMED against the template and take its first best
+place (on the card one launch of :func:`..ops.ncc_locate.ncc_locate`; on
+the CPU, and for windows the kernel does not take, DFT-matmul correlation
+plus banded-matmul window statistics), crop the best hit, and recognize it
 with the fused projection-and-match kernel (:func:`..ops.fused_match.
 fused_match`).  The hit re-centres the stream's window for the next
 frame.  :meth:`MultiStreamRecognizer.process_batch` runs one frame of
@@ -28,8 +30,9 @@ step and the same bits as a one-process mesh of the same shape.
 
 Both entry points compute under :func:`..device.exact_float32`: the
 1e-5 parity with the JAX package and the planted-exact check need full
-float32 products in the DFT and banded matmuls, whatever TF32 setting
-the caller runs with.
+float32 products in the plain route's DFT and banded matmuls, whatever
+TF32 setting the caller runs with (the kernel computes in float32 and
+float64 on the CUDA cores).
 """
 
 from __future__ import annotations
@@ -41,17 +44,21 @@ import numpy as np
 import torch
 
 from face_detection_recognization_pca_tpu_torch.device import exact_float32
-from face_detection_recognization_pca_tpu_torch.ops.dft_match import (
-    make_circular_correlator,
-)
 from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
     LinearizedModel,
     fused_match,
     linearize_model,
 )
+from face_detection_recognization_pca_tpu_torch.ops.ncc_locate import (
+    kernel_takes,
+    ncc_locate,
+    ncc_locate_plain,
+    plain_operands,
+    template_spectrum,
+)
 from face_detection_recognization_pca_tpu_torch.parallel.mesh import Mesh
 from face_detection_recognization_pca_tpu_torch.parallel.sharding import _gather_chunks
-from face_detection_recognization_pca_tpu_torch.utils.profiling import span
+from face_detection_recognization_pca_tpu_torch.utils.profiling import count, span
 
 
 @dataclasses.dataclass
@@ -62,37 +69,38 @@ class MultiStreamState:
 
 
 class StepOperands(NamedTuple):
-    """What a step needs besides the frames, all on one device."""
+    """What a step needs besides the frames, all on one device.  The
+    kernel's route holds ``spectrum``; the plain route ``corr`` and
+    ``band``."""
 
     win: int
     tpl: int
-    corr: Callable[[torch.Tensor], torch.Tensor]  # the NCC numerator
-    band: torch.Tensor  # (win, out_n) banded ones
     t_energy: torch.Tensor  # () float32
     lin: LinearizedModel
+    spectrum: Optional[torch.Tensor] = None  # ops.ncc_locate.template_spectrum
+    corr: Optional[Callable[[torch.Tensor], torch.Tensor]] = None  # the NCC numerator
+    band: Optional[torch.Tensor] = None  # (win, out_n) banded ones
 
 
 def step_operands(lin: LinearizedModel, template: np.ndarray, win: int,
                   device: torch.device) -> StepOperands:
     """The operands of :func:`locate_and_match` on ``device``, for a square
     ``template`` (raw pixels) searched in ``win`` x ``win`` windows and a
-    linearized model for crops of the template's size."""
+    linearized model for crops of the template's size.  On a CUDA device,
+    where the kernel takes the shape (:func:`..ops.ncc_locate.kernel_takes`:
+    windows up to 192), the template's spectrum for
+    :func:`..ops.ncc_locate.ncc_locate`; otherwise the plain route's
+    correlator and band."""
+    device = torch.device(device)
     tpl = int(template.shape[0])
     t0 = np.asarray(template, np.float32)
     t0 = t0 - t0.mean()
-    out_n = win - tpl + 1
-    jj = np.arange(win)[:, None]
-    xx = np.arange(out_n)[None, :]
-    band = ((jj >= xx) & (jj < xx + tpl)).astype(np.float32)
-    return StepOperands(
-        win=win,
-        tpl=tpl,
-        corr=make_circular_correlator(t0, win, out_n, device),
-        band=torch.from_numpy(band).to(device),
-        t_energy=torch.tensor(np.sum(t0 * t0, dtype=np.float64).astype(np.float32),
-                              device=device),
-        lin=lin.to(device),
-    )
+    t_energy = torch.tensor(np.sum(t0 * t0, dtype=np.float64).astype(np.float32), device=device)
+    if device.type == "cuda" and kernel_takes(win, tpl):
+        return StepOperands(win, tpl, t_energy, lin.to(device),
+                            spectrum=torch.from_numpy(template_spectrum(t0)).to(device))
+    corr, band = plain_operands(t0, win, device)
+    return StepOperands(win, tpl, t_energy, lin.to(device), corr=corr, band=band)
 
 
 def slice_windows(frames: torch.Tensor, origin: torch.Tensor, win: int) -> torch.Tensor:
@@ -118,31 +126,21 @@ def locate_and_match(windows: torch.Tensor, mean: torch.Tensor, ops: StepOperand
 
     ``mean`` is the 0-d mean of every window of the step, not one per
     window: the windows are centred on it for the NCC statistics only
-    (float32 cancellation in s2 - s1^2/n); the crops stay raw pixels."""
+    (float32 cancellation in s2 - s1^2/n); the crops stay raw pixels.
+    The NCC takes the route ``ops`` holds (:func:`step_operands`), counted
+    once per step as ``multistream.ncc.kernel`` or ``.plain``."""
     s = windows.shape[0]
-    win, tpl, band = ops.win, ops.tpl, ops.band
-    out_n = win - tpl + 1
-    with span("multistream.numerator"):
-        windows_c = windows - mean
-        num = ops.corr(windows_c)
-
-    with span("multistream.statistics"):
-        s1 = band.T @ windows_c @ band
-        s2 = band.T @ (windows_c * windows_c) @ band
-        n = tpl * tpl
-        var_n = torch.clamp(s2 - s1 * s1 / n, min=0.0)
-        denom = torch.sqrt(ops.t_energy * var_n)
-        safe = var_n > n * 1.0
-        scores = torch.clamp(
-            torch.where(safe, num / torch.where(safe, denom, torch.ones_like(denom)), 0.0),
-            -1.0, 1.0,
-        )
-        flat = scores.reshape(s, -1)
-        loc = torch.argmax(flat, dim=1)  # first maximum
-        tm_conf = torch.gather(flat, 1, loc[:, None])[:, 0]
-        loc = loc.to(torch.int32)
-        ly = torch.div(loc, out_n, rounding_mode="floor")
-        lx = loc - ly * out_n
+    tpl = ops.tpl
+    with span("multistream.ncc"):
+        if ops.spectrum is not None:
+            count("multistream.ncc.kernel")
+            # The kernel reads whole windows; the headline hands it a view of its frames.
+            ly, lx, tm_conf = ncc_locate(windows.contiguous(), mean, ops.spectrum, ops.t_energy,
+                                         tpl)
+        else:
+            count("multistream.ncc.plain")
+            ly, lx, tm_conf = ncc_locate_plain(windows, mean, ops.corr, ops.band,
+                                               ops.t_energy, tpl)
 
     with span("multistream.crops"):
         ar_tpl = torch.arange(tpl, device=windows.device, dtype=torch.int32)

@@ -1,6 +1,6 @@
-"""Tests that need a CUDA GPU: the fused-match, gallery-match and Haar
-cascade kernels against their plain PyTorch versions on the card, and the
-slices going through them.  They skip without a GPU; on a machine with one, run
+"""Tests that need a CUDA GPU: the fused-match, gallery-match, Haar
+cascade and NCC kernels against their plain PyTorch versions on the card,
+and the slices going through them.  They skip without a GPU; on a machine with one, run
 ``python -m pytest tests/test_torch_gpu.py -m gpu``.  This file imports
 no JAX, so it runs where only the port is installed."""
 
@@ -12,6 +12,7 @@ import torch
 from face_detection_recognization_pca_tpu_torch.ops import fused_match as tfm
 from face_detection_recognization_pca_tpu_torch.ops import gallery_match as tgm
 from face_detection_recognization_pca_tpu_torch.ops import haar_cascade
+from face_detection_recognization_pca_tpu_torch.ops import ncc_locate as nl
 
 torch.set_num_threads(1)
 
@@ -721,6 +722,229 @@ def test_haar_cascade_kernel_equals_the_plain_path_on_the_cards_integrals(cuda_d
         assert plain["survivors"] == [(3, 0)] and rows.shape[0] == 0
     if kind == "frontal":
         assert len(plain["survivors"]) == 5 and plain["survivors"][-1][1] > 0
+
+
+# ---- the tracker's NCC kernel (csrc/ncc_locate.cu) ----------------------------------------
+
+
+def _ncc_windows(device, s, win, tpl, seed):
+    """``s`` noise windows (110 + 25 N(0, 1)), each with a uniform random
+    template planted at a random place under N(0, 8) noise, as the
+    tracker's frames hold the face; and the template."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(0, 255, (tpl, tpl)).astype(np.float32)
+    w = (110 + 25 * rng.standard_normal((s, win, win))).astype(np.float32)
+    for i, (y, x) in enumerate(rng.integers(0, win - tpl + 1, (s, 2))):
+        w[i, y:y + tpl, x:x + tpl] = t + 8 * rng.standard_normal((tpl, tpl))
+    return torch.from_numpy(w).to(device), t
+
+
+def _ncc_operands(device, t, win):
+    """The kernel's spectrum, the centred template's energy, and the plain
+    route's correlator and band, as ``parallel.multistream.step_operands``
+    makes them."""
+    import numpy as np
+
+    t0 = t - t.mean()
+    spectrum = torch.from_numpy(nl.template_spectrum(t0)).to(device)
+    t_energy = torch.tensor(np.sum(t0 * t0, dtype=np.float64).astype(np.float32), device=device)
+    return (spectrum, t_energy, *nl.plain_operands(t0, win, device))
+
+
+def _ncc_plain_scores(windows, mean, corr, band, t_energy, tpl):
+    from face_detection_recognization_pca_tpu_torch.device import exact_float32
+
+    with exact_float32():
+        return nl.ncc_scores_plain(windows, mean, corr, band, t_energy, tpl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s, win, tpl", [(512, 192, 96), (3, 192, 96), (4, 128, 64),
+                                         (5, 150, 96), (2, 192, 86), (6, 60, 20), (7, 96, 40)])
+def test_ncc_kernel_equals_the_plain_route_on_card(cuda_device, s, win, tpl):
+    """One launch at the s512 cell's step (512 windows of 192, template
+    96), at S 3, and at windows zero-padded to the plane of 192: 128 / 64,
+    150 / 96, 60 / 20 and 96 / 40; and the largest score grid the plane
+    leaves room for (107 x 107).  The score at the kernel's place is the
+    plain route's within CONF_ATOL and the plain route's best within it;
+    the place is the plain route's wherever its two best scores lie
+    farther apart than CONF_ATOL."""
+    windows, t = _ncc_windows(cuda_device, s, win, tpl, seed=win * 10 + s)
+    spectrum, t_energy, corr, band = _ncc_operands(cuda_device, t, win)
+    mean = windows.mean()
+    launches = nl.ncc_locate.launches
+    ly, lx, conf = nl.ncc_locate(windows, mean, spectrum, t_energy, tpl)
+    assert nl.ncc_locate.launches == launches + 1
+    assert ly.dtype == lx.dtype == torch.int32 and conf.dtype == torch.float32
+    scores = _ncc_plain_scores(windows, mean, corr, band, t_energy, tpl).reshape(s, -1)
+    flat = (ly * (win - tpl + 1) + lx).long()
+    at = scores.gather(1, flat[:, None])[:, 0]
+    top2 = scores.topk(2, dim=1).values
+    assert float((conf - at).abs().max()) <= CONF_ATOL
+    assert float((top2[:, 0] - at).abs().max()) <= CONF_ATOL
+    apart = top2[:, 0] - top2[:, 1] > CONF_ATOL
+    assert bool(apart.any())
+    assert torch.equal(flat[apart], scores.argmax(1)[apart])
+
+
+@pytest.mark.gpu
+def test_ncc_kernel_scores_flat_and_low_variance_windows_zero(cuda_device):
+    """A flat window and one of variance 0.25 (var_n about n / 4) score 0
+    everywhere and give the first place; in a flat window with one dark
+    pixel at (0, 0) only the place (0, 0) has the variance, and scores
+    below 0 there, so the first zero, (0, 1), wins.  As the plain route."""
+    import numpy as np
+
+    win, tpl = 192, 96
+    rng = np.random.default_rng(11)
+    t = rng.uniform(0, 255, (tpl, tpl)).astype(np.float32)
+    t[0, 0] = 255.0  # above the template's mean: the dark pixel scores below 0
+    flat = np.full((win, win), 100.0, np.float32)
+    low = (100 + 0.5 * rng.standard_normal((win, win))).astype(np.float32)
+    dark = flat.copy()
+    dark[0, 0] = -400.0
+    windows = torch.from_numpy(np.stack([flat, low, dark])).to(cuda_device)
+    spectrum, t_energy, corr, band = _ncc_operands(cuda_device, t, win)
+    mean = windows.mean()
+    ly, lx, conf = nl.ncc_locate(windows, mean, spectrum, t_energy, tpl)
+    assert (ly.tolist(), lx.tolist(), conf.tolist()) == ([0, 0, 0], [0, 0, 1], [0.0, 0.0, 0.0])
+    scores = _ncc_plain_scores(windows, mean, corr, band, t_energy, tpl).reshape(3, -1)
+    assert scores.argmax(1).tolist() == [0, 0, 1] and float(scores[2, 0]) < 0
+
+
+@pytest.mark.gpu
+def test_ncc_kernel_takes_the_first_of_an_exact_tie(cuda_device):
+    """The template planted exactly at (2, 96) and at (96, 0) of a noise
+    window, scored against 0.81 of the template's energy: both places read
+    1 / 0.9 before the clamp and exactly 1.0 after it, and nothing else
+    comes near.  The first flat index, (2, 96), whose rows another warp
+    scores than (96, 0)'s, wins, as in the plain route."""
+    import numpy as np
+
+    win, tpl = 192, 96
+    rng = np.random.default_rng(12)
+    t = rng.uniform(0, 255, (tpl, tpl)).astype(np.float32)
+    w = (110 + 25 * rng.standard_normal((win, win))).astype(np.float32)
+    w[2:2 + tpl, 96:96 + tpl] = t
+    w[96:96 + tpl, 0:tpl] = t
+    windows = torch.from_numpy(w[None]).to(cuda_device)
+    spectrum, t_energy, corr, band = _ncc_operands(cuda_device, t, win)
+    low = t_energy * 0.81
+    ly, lx, conf = nl.ncc_locate(windows, windows.mean(), spectrum, low, tpl)
+    scores = _ncc_plain_scores(windows, windows.mean(), corr, band, low, tpl).reshape(-1)
+    out = win - tpl + 1
+    assert (scores == 1.0).nonzero()[:, 0].tolist() == [2 * out + 96, 96 * out]
+    assert (ly.item(), lx.item(), conf.item()) == (2, 96, 1.0)
+
+
+@pytest.mark.gpu
+def test_ncc_kernel_gives_a_window_the_same_bits_alone_and_anywhere_in_a_batch(cuda_device):
+    """Each of 512 windows alone gives the bits it gets in the batch, and
+    one window copied to all 512 places gives its own bits at each."""
+    windows, t = _ncc_windows(cuda_device, 512, 192, 96, seed=5)
+    spectrum, t_energy, _, _ = _ncc_operands(cuda_device, t, 192)
+    mean = windows.mean()
+    whole = nl.ncc_locate(windows, mean, spectrum, t_energy, 96)
+    for p in range(512):
+        alone = nl.ncc_locate(windows[p:p + 1], mean, spectrum, t_energy, 96)
+        assert all(torch.equal(a, w[p:p + 1]) for a, w in zip(alone, whole)), p
+    copies = windows[7:8].expand(512, -1, -1).contiguous()
+    each = nl.ncc_locate(copies, mean, spectrum, t_energy, 96)
+    assert all(torch.equal(e, w[7:8].expand(512)) for e, w in zip(each, whole))
+
+
+@pytest.mark.gpu
+def test_ncc_kernel_repeats_bit_for_bit_and_replays_in_a_cuda_graph(cuda_device):
+    windows, t = _ncc_windows(cuda_device, 64, 192, 96, seed=9)
+    spectrum, t_energy, _, _ = _ncc_operands(cuda_device, t, 192)
+    args = (windows, windows.mean(), spectrum, t_energy, 96)
+    first, second = nl.ncc_locate(*args), nl.ncc_locate(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        nl.ncc_locate(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = nl.ncc_locate(*args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, replayed))
+
+
+@pytest.mark.gpu
+def test_ncc_kernel_rejects_mixed_devices_and_wrong_dtypes(cuda_device):
+    windows, t = _ncc_windows(cuda_device, 2, 192, 96, seed=1)
+    spectrum, t_energy, _, _ = _ncc_operands(cuda_device, t, 192)
+    mean = windows.mean()
+    with pytest.raises(ValueError, match="spectrum is on cpu"):
+        nl.ncc_locate(windows, mean, spectrum.cpu(), t_energy, 96)
+    with pytest.raises(ValueError, match="mean is on cpu"):
+        nl.ncc_locate(windows, mean.cpu(), spectrum, t_energy, 96)
+    with pytest.raises(TypeError, match="windows must be torch.float32"):
+        nl.ncc_locate(windows.double(), mean, spectrum, t_energy, 96)
+    with pytest.raises(TypeError, match="t_energy must be torch.float32"):
+        nl.ncc_locate(windows, mean, spectrum, t_energy.half(), 96)
+
+
+@pytest.mark.gpu
+def test_ncc_wrapper_sizes_what_the_kernel_needs(cuda_device):
+    lib = nl._lib()
+    for out in (1, 33, 97, 107, 128):
+        assert lib.ncc_locate_smem_bytes(out) == nl.smem_bytes(out)
+    props = torch.cuda.get_device_properties(cuda_device)
+    optin = getattr(props, "shared_memory_per_block_optin", nl.SMEM_LIMIT)
+    assert optin == nl.SMEM_LIMIT
+
+
+@pytest.mark.gpu
+def test_the_tracker_step_locates_in_one_launch_and_equals_the_plain_route(cuda_device,
+                                                                          monkeypatch):
+    """``MultiStreamRecognizer`` on the card: one ``ncc_locate`` launch and
+    one ``multistream.ncc.kernel`` count per step, planted-exact; the same
+    step with the plain route on the card gives the same rows, places and
+    cosines, and the template scores within CONF_ATOL."""
+    import numpy as np
+
+    from face_detection_recognization_pca_tpu_torch import bench
+    from face_detection_recognization_pca_tpu_torch.models.eigenfaces import train_v1
+    from face_detection_recognization_pca_tpu_torch.parallel import multistream as tms
+    from face_detection_recognization_pca_tpu_torch.utils import profiling
+
+    streams, (h, w), batches = 4, (480, 640), 3
+    frames, gallery_images, face, plants = bench.tracker_assets(
+        streams, (h, w), batches, 4, cuda_device
+    )
+    model, _ = train_v1(gallery_images, n_components=bench.N_COMPONENTS)
+    boxes0 = np.stack(
+        [plants[0, :, 1], plants[0, :, 0], np.zeros(streams), np.zeros(streams)], 1
+    ).astype(np.int32)
+    msr = tms.MultiStreamRecognizer(model, face, window=bench.WIN)
+    assert msr._ops[msr.device].spectrum is not None
+    before = nl.ncc_locate.launches
+    profiling.enable(True)
+    try:
+        got, _ = msr.process_window(frames, msr.init_state(streams, (h, w), boxes0))
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert nl.ncc_locate.launches == before + batches
+    assert counters == {"multistream.ncc.kernel": batches}
+    assert bench.planted_exact(got, plants)
+    monkeypatch.setattr(tms, "kernel_takes", lambda win, tpl: False)
+    plain = tms.MultiStreamRecognizer(model, face, window=bench.WIN)
+    assert plain._ops[plain.device].spectrum is None
+    want, _ = plain.process_window(frames, plain.init_state(streams, (h, w), boxes0))
+    for key in want:
+        if key == "template_confidence":
+            assert float((got[key] - want[key]).abs().max()) <= CONF_ATOL
+        else:
+            assert torch.equal(got[key], want[key]), key
 
 
 @pytest.mark.gpu

@@ -180,8 +180,8 @@ def test_under_a_profiler_spans_are_kept_and_nest_as_ranges_of_the_trace(tmp_pat
             assert snap == {"spans": [], "counters": {}, "totals": {}}
 
 
-STEP_SPANS = ("multistream.step", "multistream.windows", "multistream.numerator",
-              "multistream.statistics", "multistream.crops", "multistream.match")
+STEP_SPANS = ("multistream.step", "multistream.windows", "multistream.ncc",
+              "multistream.crops", "multistream.match")
 
 
 def test_process_batch_and_window_give_the_same_bits_traced_with_each_stage_once():
@@ -212,7 +212,7 @@ def test_process_batch_and_window_give_the_same_bits_traced_with_each_stage_once
     snap = profiling.snapshot()
     steps = 2 * batches  # process_batch per frame, then process_window's frames
     assert _counts(snap) == {name: steps for name in STEP_SPANS}
-    assert snap["counters"] == {}
+    assert snap["counters"] == {"multistream.ncc.plain": steps}  # the CPU's route, once a step
     for r in snap["spans"]:
         assert r.parent == (None if r.name == "multistream.step" else "multistream.step")
     assert len({r.call for r in snap["spans"]}) == steps
