@@ -36,9 +36,8 @@ Phases, each printing a line:
    streams and 8 frame batches (seed 4), a snapshot-PCA model trained on
    the card, then 8 ``process_batch`` steps and one 8-frame
    ``process_window``; every position and gallery row must be the planted
-   one, and the kernel's launch count must show that both paths went
-   through it.  Then ``bench.tracker`` at the same size, which must
-   publish both fps at its planted-exact check, with 64 launches;
+   one, and the launch counts of the fused kernel and of ``ncc_locate``
+   must show that both paths went through them, once a step;
 5. gallery kernel against plain: ``gallery_match`` against
    ``_gallery_match_plain`` at the JAX shape (B 1024, k 128, N 131072) in
    float32 and bfloat16, ragged B and N, sentinel rows, a valid zero-norm
@@ -61,14 +60,14 @@ Phases, each printing a line:
    16 streams and 32 frame batches, 512 windows of 192 x 192 per dispatch
    through the tracker's step math and one ``fused_match`` launch (B =
    512, D = 9216, k = 64, N = 256).  It prints frames/s/card, the step's
-   ms, the kernels' ms and launches per dispatch and their share of the
-   step (``torch.profiler``), TFLOP/s by the closed form, and the seconds
-   of a 969 x 4096, k = 100 PCA training, each timing window on the host
-   clock and by CUDA events, and the float32 peak's share.  Every planted
-   offset and gallery row must be exact and the kernel must have been
-   launched.  Then ``bench.headline_geom256`` (window 256, template 128,
-   24 streams x 32 batches: one launch at B = 768, D = 16384 per
-   dispatch), planted-exact, and the fused kernel held against plain at
+   ms (host clock, one window of 20 dispatches), the fused kernel's
+   launches and the seconds of a 969 x 4096, k = 100 PCA training.  Every
+   planted offset and gallery row must be exact, the batch full, the
+   fused kernel and ``ncc_locate`` launched once a dispatch and the
+   gallery kernel not at all.  Then ``bench.headline_geom256`` (window
+   256, template 128, 24 streams x 32 batches: one launch at B = 768, D =
+   16384 per dispatch, the NCC on the plain route), planted-exact, and
+   the fused kernel held against plain at
    that shape and timed beside plain, ``crops @ m`` and the bound
    (``b768_d16384`` in the JSON line);
 8. the tracked scan of one video, without OpenCV: a model trained on the
@@ -179,13 +178,10 @@ Phases, each printing a line:
     (0.8), ``evaluate_model`` of each crop on the card must equal it on
     the model copied to the CPU: the same id, confidence within 1e-5.  Then
     ``cli.main(["bench", "--streams", "4", "--size", "1080p"])`` with no
-    ``--device``, three times: each must print a JSON line whose
-    self-check holds, and launch ``fused_match``
-    (``launches_by_path["cli_bench"]``); each reading's windows on the host
-    clock and by CUDA events, its three profiled windows' kernel time and
-    host clock per dispatch, and ``nvidia-smi``'s SM and memory clocks,
-    power draw and temperature before and after it are printed, and the
-    spread of both clocks over all nine windows;
+    ``--device``, once: it must exit 0 and print a JSON line whose
+    self-check holds, from the card, and launch ``fused_match``
+    (``launches_by_path["cli_bench"]``) and ``ncc_locate`` once a
+    dispatch;
 16. multi-process meshes on ``torch.distributed``: the script starts
     itself again as workers (``--distributed-worker``), which join a group
     through ``parallel.distributed.initialize_multihost`` and build
@@ -252,7 +248,7 @@ in the tracker slice, the headline, the tracked scan, the CLI bench and
 the mesh and cross-process trackers, none in geom256, whose 256 windows
 take the plain route), and, from the ``[ncc]`` phase at the s512 and s64
 cells' steps (512 and 64 windows of 192, the template of 96, on the
-step's own operands and windows): ``ms`` and ``plain_ms``, the
+step's locator and windows): ``ms`` and ``plain_ms``, the
 device-only (CUDA graph) times of the kernel and of the plain route,
 ``event_loop_ms`` and ``plain_event_loop_ms`` the same around Python
 calls, ``library_ms`` and ``library_device_ms`` the numerator alone by
@@ -334,10 +330,7 @@ from face_detection_recognization_pca_tpu_torch.parallel import (
     snapshot_pca_sharded,
 )
 from face_detection_recognization_pca_tpu_torch.parallel.distributed import GROUP_VARS
-from face_detection_recognization_pca_tpu_torch.parallel.multistream import (
-    MultiStreamRecognizer,
-    slice_windows,
-)
+from face_detection_recognization_pca_tpu_torch.parallel.multistream import slice_windows
 from face_detection_recognization_pca_tpu_torch.parallel.sharding import _gather_chunks
 from face_detection_recognization_pca_tpu_torch.ops.preprocess import preprocess_crops
 from face_detection_recognization_pca_tpu_torch.ops.resize import resize_bilinear
@@ -387,7 +380,6 @@ CCOEFF_BATCH, CCOEFF_SEED, CCOEFF_K = 4, 11, 128
 CCOEFF_BAND = 1e-4  # of the largest |score|: a near-tie at rank k
 ENHANCED_SCAN, ENHANCED_SEED, ENHANCED_K = 16, 12, 100
 FLOW_FRAMES, FLOW_SEED = 48, 13
-CLI_BENCH_READINGS = 3
 # Phase 17: bench_e2e_video's defaults (160 frames, batch 16) on 1080p
 # frames; the card against the CPU on two batches of 240 x 320 frames.
 E2E_FRAMES, E2E_BATCH, E2E_SEED, E2E_CPU_SIZE = 160, 16, 17, (240, 320)
@@ -495,15 +487,6 @@ def card_and_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-
-
-def card_clocks() -> str:
-    """The card's SM and memory clocks, power draw and temperature, as
-    ``nvidia-smi`` gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
 
 
@@ -758,37 +741,32 @@ def phase_kernel_vs_plain(dev) -> dict:
 
 def _ncc_figures(dev, streams: int) -> dict:
     """The NCC kernel at one tracker step of ``streams`` 1080p streams: the
-    tracker's own operands (``step_operands``, through the recognizer) and
-    the first frame's windows at the planted faces.  The score at the
-    kernel's place must be the plain route's within CONF_ATOL, and the
-    place the plain route's wherever its two best scores lie farther apart;
-    then the kernel, the plain route and the numerator alone by
-    ``torch.fft`` (cuFFT), timed in turns by CUDA events around Python
-    calls and around replays of a CUDA graph of calls (the card alone,
-    without the wrapper's host time between launches), and the bound."""
+    locator the tracker's step makes (``ncc_locate.locator``), which must
+    take the kernel's route, and the first frame's windows at the planted
+    faces.  The score at the kernel's place must be the plain route's
+    within CONF_ATOL, and the place the plain route's wherever its two best
+    scores lie farther apart; then the kernel, the plain route and the
+    numerator alone by ``torch.fft`` (cuFFT), timed in turns by CUDA events
+    around Python calls and around replays of a CUDA graph of calls (the
+    card alone, without the wrapper's host time between launches), and the
+    bound."""
     ncc_bound = importlib.import_module("benchmark.metrics.ncc_roofline")
     h, w = bench.SIZES["1080p"]
-    frames, gallery, face, plants = bench.tracker_assets(streams, (h, w), 1, SEED, dev)
-    model, _ = train_v1(gallery, n_components=bench.N_COMPONENTS)
-    msr = MultiStreamRecognizer(model, face, window=bench.WIN)
-    ops = msr._ops[msr.device]
-    check(ops.spectrum is not None, f"S {streams}: the step's operands take the kernel's route")
-    boxes0 = np.stack([plants[0, :, 1], plants[0, :, 0], np.zeros(streams), np.zeros(streams)],
-                      1).astype(np.int32)
-    windows = slice_windows(frames[0], msr.init_state(streams, (h, w), boxes0).origin, ops.win)
-    mean = windows.mean()
-    win, tpl = ops.win, ops.tpl
-    out = win - tpl + 1
+    win, tpl = bench.WIN, bench.TPL
+    frames, _, face, plants = bench.tracker_assets(streams, (h, w), 1, SEED, dev)
     t0 = np.asarray(face, np.float32)
     t0 = t0 - t0.mean()
+    kernel = ncc_locate.locator(t0, win, dev)
+    check(kernel.route == "kernel", f"S {streams}: the step's locator takes the kernel's route")
+    origin = np.clip(plants[0] - (win - tpl) // 2, 0, [h - win, w - win]).astype(np.int32)
+    windows = slice_windows(frames[0], torch.from_numpy(origin).to(dev), win)
+    mean = windows.mean()
+    out = win - tpl + 1
     corr, band = ncc_locate.plain_operands(t0, win, dev)
-
-    def kernel():
-        return ncc_locate.ncc_locate(windows, mean, ops.spectrum, ops.t_energy, tpl)
 
     def plain():
         with port_device.exact_float32():
-            return ncc_locate.ncc_locate_plain(windows, mean, corr, band, ops.t_energy, tpl)
+            return ncc_locate.ncc_locate_plain(windows, mean, corr, band, kernel.t_energy, tpl)
 
     t_spec = torch.fft.rfft2(torch.from_numpy(t0).to(dev), s=(win, win)).conj()
 
@@ -797,10 +775,10 @@ def _ncc_figures(dev, streams: int) -> dict:
             :, :out, :out]
 
     launches = ncc_locate.ncc_locate.launches
-    ly, lx, conf = kernel()
+    ly, lx, conf = kernel(windows, mean)
     check(ncc_locate.ncc_locate.launches == launches + 1, "one ncc_locate launch a call")
     with port_device.exact_float32():
-        scores = ncc_locate.ncc_scores_plain(windows, mean, corr, band, ops.t_energy, tpl)
+        scores = ncc_locate.ncc_scores_plain(windows, mean, corr, band, kernel.t_energy, tpl)
         num = corr(windows - mean)
     flat = scores.reshape(streams, -1)
     place = (ly * out + lx).long()
@@ -815,7 +793,8 @@ def _ncc_figures(dev, streams: int) -> dict:
           f"S {streams}: the kernel's places are the plain route's where its two best scores "
           f"lie apart")
     check(lib_err <= 1e-5, f"S {streams}: torch.fft's numerator is the plain route's: {lib_err}")
-    turns = bench.time_in_turns({"plain": plain, "kernel": kernel, "library": library},
+    turns = bench.time_in_turns({"plain": plain, "kernel": lambda: kernel(windows, mean),
+                                 "library": library},
                                 ("plain", "kernel", "library", "library", "kernel", "plain"),
                                 loop_iters=NCC_LOOP_CALLS, graph_calls=NCC_GRAPH_CALLS)
     avg = {clock: {name: sum(v) / len(v) for name, v in t.items()} for clock, t in turns.items()}
@@ -830,7 +809,7 @@ def _ncc_figures(dev, streams: int) -> dict:
               "share": bound_ms / avg["device"]["kernel"], "max_conf_err": conf_err,
               "places_apart": int(apart.sum()), "library_rel_err": lib_err}
     fmt = lambda v: "/".join(f"{x:.5f}" for x in v)  # noqa: E731
-    print(f"[ncc] S {streams}, window {win}, template {tpl}, the step's operands: score at the "
+    print(f"[ncc] S {streams}, window {win}, template {tpl}, the step's locator: score at the "
           f"kernel's place within {conf_err:.3g} of the plain route's, places equal where its two "
           f"best lie apart ({int(apart.sum())} of {streams}); ms per call: device-only (CUDA graph "
           f"of {NCC_GRAPH_CALLS}) kernel {fmt(turns['device']['kernel'])}, plain "
@@ -887,27 +866,8 @@ def phase_slice(dev, card: str) -> int:
     check(bool((wout["person_id"] == 0).all()), "person id of gallery row 0")
     print(f"[slice] planted-exact on both paths; fused_match launches {launches}; "
           f"min conf {float(conf.min()):.6f}, min template conf {float(tm_conf.min()):.6f}")
-    del msr, frames, outs, wout
-
-    # bench.tracker: its own assets and model, a verified first pass of each
-    # path, then process_batch best of 3 passes and process_window best of 3.
-    fused_match.launches = 0
-    t0 = time.perf_counter()
-    result = bench.tracker(STREAMS, "1080p", BATCHES, 3, SEED, device=dev)
-    bench_launches = fused_match.launches
-    want = (1 + 3) * BATCHES * 2
-    print(f"[slice] bench.tracker: {json.dumps(result)}; fused_match launches {bench_launches}; "
-          f"{time.perf_counter() - t0:.2f} s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}")
-    check(result["tracker_planted_pos_exact"] and result["tracker_planted_id_exact"]
-          and result["tracker_window_planted_exact"], "bench.tracker planted-exact")
-    check(result["tracker_fps"] > 0 and result["tracker_window_fps"] > 0,
-          "bench.tracker published both fps")
-    check(bench_launches == want, f"bench.tracker launched fused_match {bench_launches}, "
-          f"want {want}")
     NCC_BY_PATH["tracker"] = ncc_locate.ncc_locate.launches
-    check(NCC_BY_PATH["tracker"] == launches + bench_launches, "one ncc_locate launch a step")
-    return launches + bench_launches
+    return launches
 
 
 def _plain_cos(feats, gallery_t, gnorm, rows, dt):
@@ -1194,17 +1154,9 @@ def phase_headline(dev, card: str) -> tuple:
     print(f"[headline] {result['metric']}: {result['value']} {result['unit']}; self-check "
           f"{detail['self_check']} (planted offsets exact {detail['planted_offset_exact']}, "
           f"gallery row 0 {detail['planted_id_rate']}) over {detail['frames_per_dispatch']} "
-          f"frames per dispatch; step {detail['step_ms']} ms (host clock, best of 3 windows of "
-          f"20 dispatches: {detail['window_step_ms']} ms; CUDA events around the same windows: "
-          f"{detail['event_step_ms']} ms; 3 more windows under torch.profiler: kernels "
-          f"{detail['window_device_ms']} ms, host clock {detail['window_traced_ms']} ms, CUDA "
-          f"events {detail['window_traced_event_ms']} ms per dispatch); device "
-          f"{detail['device_ms']} ms in {detail['kernel_launches']} kernels per dispatch (the "
-          f"profiled windows), busy share "
-          f"{detail['busy_share']}; {detail['headline_tflops']} TFLOP/s by the closed form of "
-          f"{detail['headline_mflops_per_frame']} MFLOP per frame, "
-          f"{detail['headline_tflops_pct']}% of the float32 peak; fused_match launches "
-          f"{launches}; PCA train 969x4096 k=100 {detail['pca_train_wall_s_969x4096_k100']} s; "
+          f"frames per dispatch; step {detail['step_ms']} ms (host clock, one window of 20 "
+          f"dispatches); fused_match launches {launches}; PCA train 969x4096 k=100 "
+          f"{detail['pca_train_wall_s_969x4096_k100']} s; "
           f"min conf {detail['min_pca_conf']}, min template conf {detail['min_tm_conf']}; "
           f"phase {time.perf_counter() - t0:.2f} s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}")
@@ -1216,9 +1168,6 @@ def phase_headline(dev, card: str) -> tuple:
           f"the headline launched fused_match {launches} times")
     check(NCC_BY_PATH["headline"] == launches, "one ncc_locate launch a headline dispatch")
     check(gallery_match.launches == 0, "the headline does not use the gallery kernel")
-    check(detail["device_ms"] is not None, "torch.profiler saw the headline's kernels")
-    check(len(detail["window_step_ms"]) == len(detail["event_step_ms"]) == 3,
-          "the headline reports every window on both clocks")
     torch.cuda.empty_cache()
 
     # Window 256, template 128: 24 streams x 32 frame batches, one
@@ -2035,64 +1984,27 @@ def phase_flow(dev, card: str) -> int:
           f"of person{bench.PIPELINE_STRANGER} at the gate {gate} {json.dumps(gated)}, crop by "
           f"crop the CPU copy's ids, max|dconf| {eval_err:.3g}; card {card}")
 
-    # fdrp-torch bench --streams 4 (256 frames per dispatch) three times:
-    # each reading's fps, and its windows on the host clock and by CUDA
-    # events, so a slow reading shows which clock saw it.
+    # fdrp-torch bench --streams 4 (256 frames per dispatch), with no --device.
     fused_match.launches = gallery_match.launches = ncc_locate.ncc_locate.launches = 0
-    readings = []
     t2 = time.perf_counter()
-    for _ in range(CLI_BENCH_READINGS):
-        smi = {"before": card_clocks()}
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(["bench", "--streams", "4", "--size", "1080p"])
-        smi["after"] = card_clocks()
-        line = json.loads(buf.getvalue().strip().splitlines()[-1])
-        detail = line["detail"]
-        check(rc == 0 and detail["self_check"] == "ok" and line["value"] > 0,
-              f"cli bench self-check: {detail['self_check']}")
-        check(detail["device"] == card, f"cli bench ran on {detail['device']}")
-        check(len(detail["window_step_ms"]) == len(detail["event_step_ms"]) == 3
-              and len(detail["window_device_ms"]) == len(detail["window_traced_event_ms"]) == 3,
-              "cli bench reports every window on both clocks and its profiled windows' kernels")
-        readings.append(line)
-        print(f"[pipeline] cli.main(['bench', '--streams', '4', '--size', '1080p']) reading "
-              f"{len(readings)}: {line['value']} {line['unit']}, self-check {detail['self_check']}, "
-              f"{detail['frames_per_dispatch']} frames per dispatch, step {detail['step_ms']} ms; "
-              f"windows (ms per dispatch) host clock {detail['window_step_ms']}, CUDA events "
-              f"{detail['event_step_ms']}; profiled windows kernels {detail['window_device_ms']}, "
-              f"host clock {detail['window_traced_ms']}, CUDA events "
-              f"{detail['window_traced_event_ms']}; nvidia-smi clocks.sm, clocks.mem, "
-              f"power.draw, temperature.gpu before {smi['before']}, after {smi['after']}; "
-              f"device {detail['device_ms']} ms, busy share "
-              f"{detail['busy_share']}")
-    bench_s = time.perf_counter() - t2
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", "--streams", "4", "--size", "1080p"])
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    detail = line["detail"]
+    check(rc == 0 and detail["self_check"] == "ok" and line["value"] > 0,
+          f"cli bench self-check: {detail['self_check']}")
+    check(detail["device"] == card, f"cli bench ran on {detail['device']}")
     launches = fused_match.launches
-    check(launches >= CLI_BENCH_READINGS
-          and launches == sum(r["detail"]["fused_match_launches"] for r in readings),
+    check(launches >= 1 and launches == detail["fused_match_launches"],
           f"cli bench launched fused_match {launches} times")
     NCC_BY_PATH["cli_bench"] = ncc_locate.ncc_locate.launches
     check(NCC_BY_PATH["cli_bench"] == launches, "one ncc_locate launch a cli bench dispatch")
-
-    def spread(values) -> str:
-        if not values:
-            return "none"
-        return f"{min(values):.4f}-{max(values):.4f} ({max(values) / min(values):.3f}x)"
-
-    host = [v for r in readings for v in r["detail"]["window_step_ms"]]
-    event = [v for r in readings for v in r["detail"]["event_step_ms"]]
-    # The profiled windows: the card's time per dispatch by CUDA events, and
-    # how much of it no kernel ran.
-    traced = [(e, k) for r in readings for e, k in zip(r["detail"]["window_traced_event_ms"],
-                                                       r["detail"]["window_device_ms"])
-              if k is not None]
-    print(f"[pipeline] cli bench, {CLI_BENCH_READINGS} readings with no --device: frames/s/card "
-          f"{[r['value'] for r in readings]}; ms per dispatch over all {len(host)} windows: host "
-          f"clock {spread(host)}, CUDA events {spread(event)}; over the {len(traced)} profiled "
-          f"windows: CUDA events {spread([e for e, _ in traced])}, kernels "
-          f"{spread([k for _, k in traced])}, no kernel running "
-          f"{[round(e - k, 4) for e, k in traced]}; fused_match launches {launches}, "
-          f"{bench_s:.2f} s; phase {time.perf_counter() - t0:.2f} s; {card_and_limit()}")
+    print(f"[pipeline] cli.main(['bench', '--streams', '4', '--size', '1080p']) with no --device: "
+          f"{line['value']} {line['unit']}, self-check {detail['self_check']}, "
+          f"{detail['frames_per_dispatch']} frames per dispatch, step {detail['step_ms']} ms; "
+          f"fused_match launches {launches}, {time.perf_counter() - t2:.2f} s; phase "
+          f"{time.perf_counter() - t0:.2f} s; {card_and_limit()}")
     return launches
 
 

@@ -543,40 +543,6 @@ def kernel_families(rows: Sequence[Tuple[str, float, float]]) -> Dict[str, float
     return out
 
 
-def _traced_windows(fn: Callable[[], object], iters: int, windows: int = 3) -> tuple:
-    """``windows`` windows of ``iters`` calls of ``fn``, each in its own
-    ``torch.profiler`` trace and timed in that same pass on the host clock
-    and by CUDA events: (kernel ms per call, host-clock ms per call, CUDA
-    events' ms per call) of each window, and the (name, device us per call,
-    launches per call) of every kernel over all windows, as
-    :func:`traced_kernels` gives them.  A window's kernel ms is None when
-    its trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    device_ms, host_ms, event_ms, totals = [], [], [], {}
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            start.record()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            host_ms.append((time.perf_counter() - t0) / iters * 1e3)
-            event_ms.append(start.elapsed_time(end) / iters)
-        rows = [row for row in device_kernels(prof) if row[1] > 0]
-        device_ms.append(sum(us for _, us, _ in rows) / 1e3 / iters if rows else None)
-        for key, us, count in rows:
-            was = totals.get(key, (0.0, 0))
-            totals[key] = (was[0] + us, was[1] + count)
-    calls = windows * iters
-    rows = sorted(((key, us / calls, count / calls) for key, (us, count) in totals.items()),
-                  key=lambda r: -r[1])
-    return device_ms, host_ms, event_ms, rows
-
-
 def profiler_ms(fn: Callable[[], object], calls: int = 50) -> Union[float, None]:
     """Kernel time per call of ``fn`` summed by ``torch.profiler`` over
     ``calls`` eager calls, or None when the trace holds no device time."""
@@ -736,29 +702,14 @@ def headline(
     of ``size`` made by :func:`headline_assets`, plus the PCA-train
     secondary.  ``device=None`` means the CUDA device.
 
-    A dispatch is timed by the host clock around ``iters`` synchronised
-    dispatches, best of 3 such windows after ``warmup`` dispatches;
-    ``window_step_ms`` holds every window's ms per dispatch, and on a CUDA
-    device ``event_step_ms`` the same windows by CUDA events (``None``
-    elsewhere), so a slow window shows which clock saw it.  Then, on a CUDA
-    device, 3 more windows of ``iters`` dispatches each run under
-    ``torch.profiler`` (the timed windows stay unprofiled), each timed in
-    that same pass: ``window_device_ms`` is each one's kernel time per
-    dispatch, ``window_traced_ms`` its host clock and
-    ``window_traced_event_ms`` its CUDA events per dispatch, so a slow
-    profiled window shows whether the card worked longer or waited
-    (``None`` elsewhere).  The fps
-    is published only if the step recognized what was planted: every
+    A dispatch is timed by the host clock around one window of ``iters``
+    synchronised dispatches after ``warmup`` dispatches (``step_ms``).  The
+    fps is published only if the step recognized what was planted: every
     reported position equals the planted one and every gallery row is 0,
-    over all frames; otherwise ``value`` is 0.  On a CUDA device the
-    profiled windows also give the kernel time and launches per dispatch
-    (``device_ms``, ``kernel_launches``) and their share of the step
-    (``busy_share``), and ``headline_tflops_pct`` is the closed-form
-    TFLOP/s as a share of the card's float32 peak (:data:`PEAK_FLOPS`).
-    ``fused_match_launches`` counts this function's launches of the fused
-    kernel.  The secondary: ``snapshot_pca`` of 969 x
-    4096 float32 at k = 100 (the reference's multi-person scale), second
-    call, synchronised."""
+    over all frames; otherwise ``value`` is 0.  ``fused_match_launches``
+    counts this function's launches of the fused kernel.  The secondary:
+    ``snapshot_pca`` of 969 x 4096 float32 at k = 100 (the reference's
+    multi-person scale), second call, synchronised."""
     device = resolve_device(device)
     launches0 = fused_match.launches
     frames, (win_y, win_x), model, face, offs = headline_assets(
@@ -772,41 +723,17 @@ def headline(
     for _ in range(1 + warmup):
         out = dispatch()
     _synchronize(device)
-    window_step, event_step = [], None
-    if device.type == "cuda":
-        event_step = []
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for _ in range(3):
-        if event_step is not None:
-            start.record()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            out = dispatch()
-        if event_step is not None:
-            end.record()
-        _synchronize(device)
-        window_step.append((time.perf_counter() - t0) / iters * 1e3)
-        if event_step is not None:
-            event_step.append(start.elapsed_time(end) / iters)
-    dt = min(window_step) / 1e3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = dispatch()
+    _synchronize(device)
+    dt = (time.perf_counter() - t0) / iters
     n_frames = t_frames * streams
     fps = n_frames / dt
-
-    window_device_ms = window_traced_ms = window_traced_event_ms = None
-    rows = []
-    if device.type == "cuda":
-        window_device_ms, window_traced_ms, window_traced_event_ms, rows = _traced_windows(
-            dispatch, iters)
 
     offset_exact, id_rate = headline_self_check(out, offs, win_y, win_x)
     ok = offset_exact == 1.0 and id_rate == 1.0
     conf, tm_conf = out[1], out[2]
-
-    device_ms = kernel_launches = busy_share = None
-    if rows:
-        device_ms = sum(us for _, us, _ in rows) / 1e3
-        kernel_launches = sum(count for _, _, count in rows)
-        busy_share = device_ms / (dt * 1e3)
     launches = fused_match.launches - launches0
 
     train_wall_s = 0.0
@@ -822,7 +749,6 @@ def headline(
             train_wall_s = time.perf_counter() - t1
 
     flops_frame = headline_flops_per_frame(model.n_components, model.gallery.shape[0], win, tpl)
-    tflops = fps * flops_frame / 1e12
     name = next((key for key, hw in SIZES.items() if hw == tuple(size)), f"{size[0]}x{size[1]}")
     return {
         "metric": f"recognized {name} frames/sec/card (fused guided detect+project+match, "
@@ -833,21 +759,8 @@ def headline(
             "streams": streams,
             "frames_per_dispatch": n_frames,
             "step_ms": dt * 1e3,
-            "window_step_ms": window_step,
-            "event_step_ms": event_step,
-            "window_device_ms": window_device_ms,
-            "window_traced_ms": window_traced_ms,
-            "window_traced_event_ms": window_traced_event_ms,
-            "device_ms": device_ms,
-            "kernel_launches": kernel_launches,
-            "busy_share": busy_share,
             "fused_match_launches": launches,
             "headline_mflops_per_frame": flops_frame / 1e6,
-            "headline_tflops": tflops,
-            # The step runs in full float32 (exact_float32): its share of the
-            # card's float32 FFMA peak.  Only a card's time has one.
-            **({"headline_tflops_pct": 100.0 * tflops * 1e12 / PEAK_FLOPS["fp32"]}
-               if device.type == "cuda" else {}),
             "min_pca_conf": float(conf.min()),
             "min_tm_conf": float(tm_conf.min()),
             "planted_offset_exact": offset_exact,
@@ -878,8 +791,6 @@ def headline_geom256(
         "g256_fps": out["value"],
         "g256_step_ms": d["step_ms"],
         "g256_mflops_per_frame": d["headline_mflops_per_frame"],
-        "g256_tflops": d["headline_tflops"],
-        "g256_tflops_pct": d.get("headline_tflops_pct"),
         "g256_self_check": d["self_check"],
     }
 

@@ -15,13 +15,17 @@ template), the inverse pruned to the valid corner, the float64 box sums,
 the scores and the argmax, with the plane and the statistics in shared
 memory (:func:`smem_bytes`).  :func:`kernel_takes` says whether a window
 and template fit it.
+
+:func:`locator` chooses the route once per template, window side and
+device, and holds that route's operands: the tracker's step calls the
+locator it returns and knows neither route's operands.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -206,3 +210,48 @@ def ncc_locate(windows: torch.Tensor, mean: torch.Tensor, spectrum: torch.Tensor
 
 
 ncc_locate.launches = 0
+
+
+class KernelLocator(NamedTuple):
+    """The kernel's route: :func:`ncc_locate` with the template's spectrum."""
+
+    spectrum: torch.Tensor  # template_spectrum
+    t_energy: torch.Tensor  # () float32, the centred template's energy
+    tpl: int
+    route = "kernel"
+
+    def __call__(self, windows: torch.Tensor, mean: torch.Tensor):
+        # The kernel reads whole windows; the headline hands it a view of its frames.
+        return ncc_locate(windows.contiguous(), mean, self.spectrum, self.t_energy, self.tpl)
+
+
+class PlainLocator(NamedTuple):
+    """The plain route: :func:`ncc_locate_plain` with :func:`plain_operands`."""
+
+    corr: Callable[[torch.Tensor], torch.Tensor]  # the valid correlator
+    band: torch.Tensor  # (win, out) banded ones
+    t_energy: torch.Tensor
+    tpl: int
+    route = "plain"
+
+    def __call__(self, windows: torch.Tensor, mean: torch.Tensor):
+        return ncc_locate_plain(windows, mean, self.corr, self.band, self.t_energy, self.tpl)
+
+
+Locator = Union[KernelLocator, PlainLocator]
+
+
+def locator(t0: np.ndarray, win: int, device: torch.device) -> Locator:
+    """The locate of the centred square template ``t0`` (float32) in ``win``
+    x ``win`` windows on ``device``: called on ``(S, win, win)`` windows and
+    the step's 0-d mean, it returns ``(ly, lx, tm_conf)`` as
+    :func:`ncc_locate` does.  On a CUDA device where :func:`kernel_takes`
+    the shape, the kernel's route (``route`` ``"kernel"``); otherwise the
+    plain route (``"plain"``), as on the CPU."""
+    device = torch.device(device)
+    t0 = np.asarray(t0, np.float32)
+    tpl = int(t0.shape[0])
+    t_energy = torch.tensor(np.sum(t0 * t0, dtype=np.float64).astype(np.float32), device=device)
+    if device.type == "cuda" and kernel_takes(win, tpl):
+        return KernelLocator(torch.from_numpy(template_spectrum(t0)).to(device), t_energy, tpl)
+    return PlainLocator(*plain_operands(t0, win, device), t_energy, tpl)

@@ -2,9 +2,10 @@
 
 Per stream and frame: slice the search window at the tracked origin,
 score TM_CCOEFF_NORMED against the template and take its first best
-place (on the card one launch of :func:`..ops.ncc_locate.ncc_locate`; on
-the CPU, and for windows the kernel does not take, DFT-matmul correlation
-plus banded-matmul window statistics), crop the best hit, and recognize it
+place (:func:`..ops.ncc_locate.locator`'s route: on the card one launch of
+:func:`..ops.ncc_locate.ncc_locate`; on the CPU, and for windows the kernel
+does not take, DFT-matmul correlation plus banded-matmul window
+statistics), crop the best hit, and recognize it
 with the fused projection-and-match kernel (:func:`..ops.fused_match.
 fused_match`).  The hit re-centres the stream's window for the next
 frame.  :meth:`MultiStreamRecognizer.process_batch` runs one frame of
@@ -38,7 +39,7 @@ float64 on the CUDA cores).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,13 +50,7 @@ from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
     fused_match,
     linearize_model,
 )
-from face_detection_recognization_pca_tpu_torch.ops.ncc_locate import (
-    kernel_takes,
-    ncc_locate,
-    ncc_locate_plain,
-    plain_operands,
-    template_spectrum,
-)
+from face_detection_recognization_pca_tpu_torch.ops.ncc_locate import Locator, locator
 from face_detection_recognization_pca_tpu_torch.parallel.mesh import Mesh
 from face_detection_recognization_pca_tpu_torch.parallel.sharding import _gather_chunks
 from face_detection_recognization_pca_tpu_torch.utils.profiling import count, span
@@ -69,38 +64,24 @@ class MultiStreamState:
 
 
 class StepOperands(NamedTuple):
-    """What a step needs besides the frames, all on one device.  The
-    kernel's route holds ``spectrum``; the plain route ``corr`` and
-    ``band``."""
+    """What a step needs besides the frames, all on one device."""
 
     win: int
     tpl: int
-    t_energy: torch.Tensor  # () float32
     lin: LinearizedModel
-    spectrum: Optional[torch.Tensor] = None  # ops.ncc_locate.template_spectrum
-    corr: Optional[Callable[[torch.Tensor], torch.Tensor]] = None  # the NCC numerator
-    band: Optional[torch.Tensor] = None  # (win, out_n) banded ones
+    locator: Locator  # ops.ncc_locate.locator: the NCC's route and its operands
 
 
 def step_operands(lin: LinearizedModel, template: np.ndarray, win: int,
                   device: torch.device) -> StepOperands:
     """The operands of :func:`locate_and_match` on ``device``, for a square
     ``template`` (raw pixels) searched in ``win`` x ``win`` windows and a
-    linearized model for crops of the template's size.  On a CUDA device,
-    where the kernel takes the shape (:func:`..ops.ncc_locate.kernel_takes`:
-    windows up to 192), the template's spectrum for
-    :func:`..ops.ncc_locate.ncc_locate`; otherwise the plain route's
-    correlator and band."""
+    linearized model for crops of the template's size.  The NCC's route is
+    :func:`..ops.ncc_locate.locator`'s for the centred template."""
     device = torch.device(device)
-    tpl = int(template.shape[0])
     t0 = np.asarray(template, np.float32)
     t0 = t0 - t0.mean()
-    t_energy = torch.tensor(np.sum(t0 * t0, dtype=np.float64).astype(np.float32), device=device)
-    if device.type == "cuda" and kernel_takes(win, tpl):
-        return StepOperands(win, tpl, t_energy, lin.to(device),
-                            spectrum=torch.from_numpy(template_spectrum(t0)).to(device))
-    corr, band = plain_operands(t0, win, device)
-    return StepOperands(win, tpl, t_energy, lin.to(device), corr=corr, band=band)
+    return StepOperands(win, int(template.shape[0]), lin.to(device), locator(t0, win, device))
 
 
 def slice_windows(frames: torch.Tensor, origin: torch.Tensor, win: int) -> torch.Tensor:
@@ -127,20 +108,13 @@ def locate_and_match(windows: torch.Tensor, mean: torch.Tensor, ops: StepOperand
     ``mean`` is the 0-d mean of every window of the step, not one per
     window: the windows are centred on it for the NCC statistics only
     (float32 cancellation in s2 - s1^2/n); the crops stay raw pixels.
-    The NCC takes the route ``ops`` holds (:func:`step_operands`), counted
-    once per step as ``multistream.ncc.kernel`` or ``.plain``."""
+    The NCC takes the route of ``ops.locator``, counted once per step as
+    ``multistream.ncc.kernel`` or ``.plain``."""
     s = windows.shape[0]
     tpl = ops.tpl
     with span("multistream.ncc"):
-        if ops.spectrum is not None:
-            count("multistream.ncc.kernel")
-            # The kernel reads whole windows; the headline hands it a view of its frames.
-            ly, lx, tm_conf = ncc_locate(windows.contiguous(), mean, ops.spectrum, ops.t_energy,
-                                         tpl)
-        else:
-            count("multistream.ncc.plain")
-            ly, lx, tm_conf = ncc_locate_plain(windows, mean, ops.corr, ops.band,
-                                               ops.t_energy, tpl)
+        count("multistream.ncc." + ops.locator.route)
+        ly, lx, tm_conf = ops.locator(windows, mean)
 
     with span("multistream.crops"):
         ar_tpl = torch.arange(tpl, device=windows.device, dtype=torch.int32)

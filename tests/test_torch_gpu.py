@@ -376,11 +376,8 @@ def test_headline_on_card_under_a_tf32_caller(cuda_device):
     assert after["matmul_allow_tf32"] is True
     assert detail["self_check"] == "ok" and result["value"] > 0
     assert result["unit"] == "frames/s/card" and detail["device"] != "cpu"
-    # first, warm-up, 3 windows, 3 profiled windows (which also give device_ms)
-    assert detail["fused_match_launches"] == 2 + 3 * 2 + 3 * 2
-    assert detail["device_ms"] is None or detail["busy_share"] > 0
-    assert (len(detail["window_device_ms"]) == len(detail["window_traced_ms"])
-            == len(detail["window_traced_event_ms"]) == 3)
+    # first, warm-up, one timed window of 2 dispatches
+    assert detail["fused_match_launches"] == 2 + 2
 
 
 @pytest.mark.gpu
@@ -743,8 +740,7 @@ def _ncc_windows(device, s, win, tpl, seed):
 
 def _ncc_operands(device, t, win):
     """The kernel's spectrum, the centred template's energy, and the plain
-    route's correlator and band, as ``parallel.multistream.step_operands``
-    makes them."""
+    route's correlator and band, as ``ops.ncc_locate.locator`` makes them."""
     import numpy as np
 
     t0 = t - t.mean()
@@ -924,7 +920,7 @@ def test_the_tracker_step_locates_in_one_launch_and_equals_the_plain_route(cuda_
         [plants[0, :, 1], plants[0, :, 0], np.zeros(streams), np.zeros(streams)], 1
     ).astype(np.int32)
     msr = tms.MultiStreamRecognizer(model, face, window=bench.WIN)
-    assert msr._ops[msr.device].spectrum is not None
+    assert msr._ops[msr.device].locator.route == "kernel"
     before = nl.ncc_locate.launches
     profiling.enable(True)
     try:
@@ -936,9 +932,9 @@ def test_the_tracker_step_locates_in_one_launch_and_equals_the_plain_route(cuda_
     assert nl.ncc_locate.launches == before + batches
     assert counters == {"multistream.ncc.kernel": batches}
     assert bench.planted_exact(got, plants)
-    monkeypatch.setattr(tms, "kernel_takes", lambda win, tpl: False)
+    monkeypatch.setattr(nl, "kernel_takes", lambda win, tpl: False)
     plain = tms.MultiStreamRecognizer(model, face, window=bench.WIN)
-    assert plain._ops[plain.device].spectrum is None
+    assert plain._ops[plain.device].locator.route == "plain"
     want, _ = plain.process_window(frames, plain.init_state(streams, (h, w), boxes0))
     for key in want:
         if key == "template_confidence":

@@ -300,13 +300,14 @@ def test_steps_compute_in_full_float32_and_restore_the_flags(setup, rng, entry):
     want, _ = getattr(msr, entry)(frames, msr.init_state(S, (H, W)))
 
     seen = []
-    corr = msr._ops[msr.device].corr
+    ops = msr._ops[msr.device]
+    corr = ops.locator.corr
 
     def spy(windows):
         seen.append(tdevice.tf32_flags())
         return corr(windows)
 
-    msr._ops[msr.device] = msr._ops[msr.device]._replace(corr=spy)
+    msr._ops[msr.device] = ops._replace(locator=ops.locator._replace(corr=spy))
     before = tdevice.tf32_flags()
     torch.set_float32_matmul_precision("high")
     torch.backends.cudnn.allow_tf32 = True

@@ -45,13 +45,22 @@ def test_the_cells_block_takes_most_of_an_sm():
     assert nl.smem_bytes(97) == 36_864 + 148_992 + 37_636 + 96 == 223_588
 
 
-def test_step_operands_take_the_plain_route_on_the_cpu():
-    from face_detection_recognization_pca_tpu_torch.ops.fused_match import LinearizedModel
-
-    lin = LinearizedModel(torch.zeros(16, 2), torch.zeros(2), torch.zeros(2, 3), torch.ones(3),
-                          torch.zeros(3, dtype=torch.int32), (4, 4))
-    ops = tms.step_operands(lin, np.arange(16, dtype=np.float32).reshape(4, 4), 8, CPU)
-    assert ops.spectrum is None and ops.corr is not None and ops.band.shape == (8, 5)
+def test_the_locator_takes_the_plain_route_on_the_cpu():
+    """A shape the kernel takes still locates by the plain route on the CPU,
+    with the centred template's energy, and gives the plain route's
+    ``(ly, lx, tm_conf)``."""
+    t0 = np.arange(16, dtype=np.float32).reshape(4, 4)
+    t0 = t0 - t0.mean()
+    assert nl.kernel_takes(8, 4)
+    loc = nl.locator(t0, 8, CPU)
+    assert loc.route == "plain" and isinstance(loc, nl.PlainLocator)
+    assert loc.tpl == 4 and loc.t_energy.dtype == torch.float32 and loc.t_energy.dim() == 0
+    assert float(loc.t_energy) == np.float32(np.sum(t0 * t0, dtype=np.float64))
+    windows = torch.from_numpy(np.random.default_rng(5).normal(size=(3, 8, 8)).astype(np.float32))
+    mean = windows.mean()
+    corr, band = nl.plain_operands(t0, 8, CPU)
+    want = nl.ncc_locate_plain(windows, mean, corr, band, loc.t_energy, 4)
+    assert all(torch.equal(a, b) for a, b in zip(loc(windows, mean), want))
 
 
 def test_the_template_spectrum_is_laid_out_as_the_column_pass_reads_it():
@@ -173,37 +182,43 @@ def _tracker():
     return msr, frames, msr.init_state(streams, (h, w), boxes0)
 
 
+def _kernel_route(monkeypatch, plain: nl.PlainLocator, calls: list) -> nl.KernelLocator:
+    """A kernel locator whose ``ncc_locate`` is the plain route (the kernel
+    runs only on the card); ``calls`` gets each call's spectrum and whether
+    its windows were contiguous."""
+    def fake(windows, mean, spectrum, t_energy, tpl):
+        calls.append((spectrum, windows.is_contiguous()))
+        return plain(windows, mean)
+
+    monkeypatch.setattr(nl, "ncc_locate", fake)
+    return nl.KernelLocator(torch.zeros(1), plain.t_energy, plain.tpl)
+
+
 def test_each_step_counts_the_route_it_took(monkeypatch):
-    """The plain route on the CPU, once per step; a step whose operands
-    hold a spectrum goes to ``ncc_locate`` instead (replaced here by the
-    plain version, since the kernel runs only on the card) and counts
+    """The plain route on the CPU, once per step; a step whose locator takes
+    the kernel's route goes to ``ncc_locate`` instead and counts
     ``multistream.ncc.kernel``."""
     msr, frames, state = _tracker()
     want, _ = msr.process_window(frames, state)
     ops = msr._ops[msr.device]
     calls = []
 
-    def fake(windows, mean, spectrum, t_energy, tpl):
-        calls.append(spectrum)
-        return nl.ncc_locate_plain(windows, mean, ops.corr, ops.band, t_energy, tpl)
-
     profiling.enable(True)
     try:
         msr.process_window(frames, state)
         plain = profiling.snapshot()["counters"]
         profiling.reset()
-        marker = torch.zeros(1)
-        msr._ops[msr.device] = ops._replace(spectrum=marker)
-        monkeypatch.setattr(tms, "ncc_locate", fake)
+        kernel = _kernel_route(monkeypatch, ops.locator, calls)
+        msr._ops[msr.device] = ops._replace(locator=kernel)
         got, _ = msr.process_window(frames, state)
-        kernel = profiling.snapshot()["counters"]
+        by_kernel = profiling.snapshot()["counters"]
     finally:
         profiling.enable(False)
         profiling.reset()
     steps = frames.shape[0]
     assert plain == {"multistream.ncc.plain": steps}
-    assert kernel == {"multistream.ncc.kernel": steps}
-    assert len(calls) == steps and all(c is marker for c in calls)
+    assert by_kernel == {"multistream.ncc.kernel": steps}
+    assert len(calls) == steps and all(c[0] is kernel.spectrum for c in calls)
     assert all(torch.equal(want[k], got[k]) for k in want)
 
 
@@ -216,13 +231,8 @@ def test_the_kernel_route_hands_the_kernel_whole_windows_of_a_view(monkeypatch):
     view = frames[:, :, 100:100 + ops.win, 200:200 + ops.win].reshape(-1, ops.win, ops.win)
     assert not view.is_contiguous()
     want = tms.locate_and_match(view, view.mean(), ops)
-    seen = []
-
-    def fake(windows, mean, spectrum, t_energy, tpl):
-        seen.append(windows.is_contiguous())
-        return nl.ncc_locate_plain(windows, mean, ops.corr, ops.band, t_energy, tpl)
-
-    monkeypatch.setattr(tms, "ncc_locate", fake)
-    got = tms.locate_and_match(view, view.mean(), ops._replace(spectrum=torch.zeros(1)))
-    assert seen == [True]
+    calls = []
+    kernel = _kernel_route(monkeypatch, ops.locator, calls)
+    got = tms.locate_and_match(view, view.mean(), ops._replace(locator=kernel))
+    assert [contiguous for _, contiguous in calls] == [True]
     assert all(torch.equal(a, b) for a, b in zip(got, want))
