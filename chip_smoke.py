@@ -37,7 +37,9 @@ Phases, each printing a line:
    the card, then 8 ``process_batch`` steps and one 8-frame
    ``process_window``; every position and gallery row must be the planted
    one, and the launch counts of the fused kernel and of ``ncc_locate``
-   must show that both paths went through them, once a step;
+   must show that both paths went through them, once a step; it prints
+   how many steps ran eager, were captured in a CUDA graph or replayed one
+   (``graph_steps_by_path`` in the closing JSON line);
 5. gallery kernel against plain: ``gallery_match`` against
    ``_gallery_match_plain`` at the JAX shape (B 1024, k 128, N 131072) in
    float32 and bfloat16, ragged B and N, sentinel rows, a valid zero-norm
@@ -437,6 +439,9 @@ NCC_KERNEL = {
     "replaces": None,
 }
 NCC_BY_PATH = {}
+# The tracker steps' paths by phase, beside NCC_BY_PATH: the counters
+# ``multistream.graph.eager``, ``.capture`` and ``.replay`` (parallel/step_graph.py).
+GRAPH_STEPS_BY_PATH = {}
 
 
 def check(cond: bool, what: str) -> None:
@@ -838,15 +843,22 @@ def phase_slice(dev, card: str) -> int:
           f"{tuple(frames.shape)} {frames.numel() * 4 / 1e9:.2f} GB on {card}")
 
     fused_match.launches = gallery_match.launches = ncc_locate.ncc_locate.launches = 0
-    state = msr.init_state(STREAMS, (h, w), boxes0)
-    outs = []
-    for f in range(BATCHES):
-        out, state = msr.process_batch(frames[f], state)
-        outs.append(out)
-    state_b = state
-    wout, state_w = msr.process_window(frames, msr.init_state(STREAMS, (h, w), boxes0))
+
+    def steps():
+        state = msr.init_state(STREAMS, (h, w), boxes0)
+        outs = []
+        for f in range(BATCHES):
+            out, state = msr.process_batch(frames[f], state)
+            outs.append(out)
+        window = msr.process_window(frames, msr.init_state(STREAMS, (h, w), boxes0))
+        return outs, state, window
+
+    outs, state_b, (wout, state_w) = _traced(steps)
     torch.cuda.synchronize()
     launches = fused_match.launches
+    GRAPH_STEPS_BY_PATH["tracker"] = {
+        name.rsplit(".", 1)[1]: n for name, n in profiling.snapshot()["counters"].items()
+        if name.startswith("multistream.graph.")}
 
     check(launches == 2 * BATCHES, f"fused_match launched {launches} times, want {2 * BATCHES}")
     check(ncc_locate.ncc_locate.launches == launches, "one ncc_locate launch a step")
@@ -865,7 +877,9 @@ def phase_slice(dev, card: str) -> int:
     check(float(conf.min()) > 0.999 and float(tm_conf.min()) > 0.99, "planted face scores ~1")
     check(bool((wout["person_id"] == 0).all()), "person id of gallery row 0")
     print(f"[slice] planted-exact on both paths; fused_match launches {launches}; "
-          f"min conf {float(conf.min()):.6f}, min template conf {float(tm_conf.min()):.6f}")
+          f"min conf {float(conf.min()):.6f}, min template conf {float(tm_conf.min()):.6f}; "
+          f"steps by path {json.dumps(GRAPH_STEPS_BY_PATH['tracker'])} (each frame batch's "
+          f"buffer runs eager at its first step and is captured at its second)")
     NCC_BY_PATH["tracker"] = ncc_locate.ncc_locate.launches
     return launches
 
@@ -2453,7 +2467,7 @@ def main() -> int:
         {**HAAR_KERNEL, "launches": sum(haar_figures["launches_by_path"].values()),
          **haar_figures},
         {**NCC_KERNEL, "launches": sum(NCC_BY_PATH.values()), "launches_by_path": NCC_BY_PATH,
-         **ncc},
+         "graph_steps_by_path": GRAPH_STEPS_BY_PATH, **ncc},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

@@ -12,6 +12,14 @@ frame.  :meth:`MultiStreamRecognizer.process_batch` runs one frame of
 every stream; :meth:`~MultiStreamRecognizer.process_window` runs T
 frames in a Python loop, carrying the origins on the device.
 
+Without a mesh, on a CUDA device and on the NCC kernel's route, each
+frames buffer's step is captured in a CUDA graph at its second sight and
+replayed after that (:mod:`.step_graph`): three launch calls a step, not
+about 30, and the same bits.  The step's span ``multistream.step`` is
+kept around a replay; its inner spans (``multistream.windows``,
+``.ncc``, ``.crops``, ``.match``) exist only on eager and capturing
+steps.  The CPU, the plain route and every mesh run eager.
+
 With a ``mesh`` the streams are split into contiguous chunks over the
 ``data`` axis, like :mod:`.sharding`: each device holds a copy of the
 model operands and runs its streams, and the results are concatenated in
@@ -53,6 +61,7 @@ from face_detection_recognization_pca_tpu_torch.ops.fused_match import (
 from face_detection_recognization_pca_tpu_torch.ops.ncc_locate import Locator, locator
 from face_detection_recognization_pca_tpu_torch.parallel.mesh import Mesh
 from face_detection_recognization_pca_tpu_torch.parallel.sharding import _gather_chunks
+from face_detection_recognization_pca_tpu_torch.parallel.step_graph import Capture, StepGraphs
 from face_detection_recognization_pca_tpu_torch.utils.profiling import count, span
 
 
@@ -177,6 +186,10 @@ class MultiStreamRecognizer:
             for device in dict.fromkeys([self.device, *(self._shards[i] for i in self._mine)])
         }
         self.labels = self._ops[self.device].lin.labels
+        self._graphs = None
+        if (mesh is None and self.device.type == "cuda"
+                and self._ops[self.device].locator.route == "kernel"):
+            self._graphs = StepGraphs(Capture("multistream.ncc.kernel"))
 
     def init_state(self, num_streams: int, frame_hw: Tuple[int, int],
                    boxes: Optional[np.ndarray] = None) -> MultiStreamState:
@@ -202,15 +215,24 @@ class MultiStreamRecognizer:
             "y": by,
         }
 
+    def _eager_step(self, frames: torch.Tensor, origin: torch.Tensor):
+        """The one-process step as its ops launch: ``(results, next origin)``."""
+        with span("multistream.windows"):
+            windows = slice_windows(frames, origin, self.win)
+            mean = windows.mean()
+        ids, conf, tm_conf, bx, by, new_origin = _track(windows, mean, origin, frames.shape[1:],
+                                                        self._ops[self.device])
+        return self._results(ids, conf, tm_conf, bx, by), new_origin
+
     def _step(self, frames: torch.Tensor, origin: torch.Tensor):
-        """One frame of every stream, inside the span ``multistream.step``."""
+        """One frame of every stream, inside the span ``multistream.step``:
+        ``(results, next origin)``."""
         with span("multistream.step"):
-            frame_hw = frames.shape[1:]
+            if self._graphs is not None:
+                return self._graphs(frames, origin, self._eager_step)
             if self.mesh is None:
-                with span("multistream.windows"):
-                    windows = slice_windows(frames, origin, self.win)
-                    mean = windows.mean()
-                return _track(windows, mean, origin, frame_hw, self._ops[self.device])
+                return self._eager_step(frames, origin)
+            frame_hw = frames.shape[1:]
             n = len(self._shards)
             if frames.shape[0] % n:
                 raise ValueError(f"{frames.shape[0]} streams not divisible by data axis {n}")
@@ -234,7 +256,8 @@ class MultiStreamRecognizer:
                                       1).to(self.device)
             cols = self._join(packed).T.contiguous()
             conf, tm_conf = cols[5:].view(torch.float32)
-            return cols[0], conf, tm_conf, cols[1], cols[2], cols[3:5].T.contiguous()
+            results = self._results(cols[0], conf, tm_conf, cols[1], cols[2])
+            return results, cols[3:5].T.contiguous()
 
     def _join(self, chunks: Dict[int, torch.Tensor]) -> torch.Tensor:
         """Every chunk of the step on the first device, in chunk order: this
@@ -249,8 +272,8 @@ class MultiStreamRecognizer:
         state).  The results hold int32 ``gallery_row``, ``person_id``,
         ``x``, ``y`` and float32 ``confidence``, ``template_confidence``."""
         with exact_float32():
-            ids, conf, tm_conf, bx, by, new_origin = self._step(frames, state.origin)
-        return self._results(ids, conf, tm_conf, bx, by), MultiStreamState(new_origin)
+            results, new_origin = self._step(frames, state.origin)
+        return results, MultiStreamState(new_origin)
 
     def process_window(self, frames_ts: torch.Tensor, state: MultiStreamState):
         """Track T consecutive frames per stream: ``frames_ts`` (T, S, H, W).
@@ -262,7 +285,7 @@ class MultiStreamRecognizer:
         steps = []
         with exact_float32():
             for frames in frames_ts:
-                *outs, origin = self._step(frames, origin)
-                steps.append(outs)
-        ids, conf, tm_conf, bx, by = (torch.stack(col) for col in zip(*steps))
-        return self._results(ids, conf, tm_conf, bx, by), MultiStreamState(origin)
+                results, origin = self._step(frames, origin)
+                steps.append(results)
+        stacked = {key: torch.stack([r[key] for r in steps]) for key in steps[0]}
+        return stacked, MultiStreamState(origin)

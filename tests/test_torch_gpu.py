@@ -5,6 +5,7 @@ and the slices going through them.  They skip without a GPU; on a machine with o
 no JAX, so it runs where only the port is installed."""
 
 import math
+import weakref
 
 import pytest
 import torch
@@ -930,7 +931,8 @@ def test_the_tracker_step_locates_in_one_launch_and_equals_the_plain_route(cuda_
         profiling.enable(False)
         profiling.reset()
     assert nl.ncc_locate.launches == before + batches
-    assert counters == {"multistream.ncc.kernel": batches}
+    # Each frame batch's buffer is seen once, so every step runs eager.
+    assert counters == {"multistream.ncc.kernel": batches, "multistream.graph.eager": batches}
     assert bench.planted_exact(got, plants)
     monkeypatch.setattr(nl, "kernel_takes", lambda win, tpl: False)
     plain = tms.MultiStreamRecognizer(model, face, window=bench.WIN)
@@ -941,6 +943,147 @@ def test_the_tracker_step_locates_in_one_launch_and_equals_the_plain_route(cuda_
             assert float((got[key] - want[key]).abs().max()) <= CONF_ATOL
         else:
             assert torch.equal(got[key], want[key]), key
+
+
+def _graphed_and_eager(device, streams, size, pool):
+    """Two recognizers of one model over ``pool`` frame buffers of
+    ``streams`` streams: the first takes the graph path, the second is kept
+    on the eager path.  Returns them, the ``(pool, S, H, W)`` frames and the
+    first plants as boxes."""
+    import numpy as np
+
+    from face_detection_recognization_pca_tpu_torch import bench
+    from face_detection_recognization_pca_tpu_torch.models.eigenfaces import train_v1
+    from face_detection_recognization_pca_tpu_torch.parallel import multistream as tms
+
+    frames, gallery_images, face, plants = bench.tracker_assets(streams, size, pool, 4, device)
+    model, _ = train_v1(gallery_images, n_components=bench.N_COMPONENTS)
+    model.labels = torch.arange(bench.GALLERY_N, dtype=torch.int32, device=device) % 4
+    graphed = tms.MultiStreamRecognizer(model, face, window=bench.WIN)
+    eager = tms.MultiStreamRecognizer(model, face, window=bench.WIN)
+    assert graphed._graphs is not None
+    eager._graphs = None
+    boxes0 = np.stack([plants[0, :, 1], plants[0, :, 0], np.zeros(streams), np.zeros(streams)],
+                      1).astype(np.int32)
+    return graphed, eager, frames, boxes0
+
+
+def _assert_same_step(got, want):
+    (g_out, g_state), (w_out, w_state) = got, want
+    assert list(g_out) == list(w_out)
+    for key in w_out:
+        assert g_out[key].dtype == w_out[key].dtype, key
+        assert g_out[key].shape == w_out[key].shape, key
+        assert torch.equal(g_out[key].view(torch.int32), w_out[key].view(torch.int32)), key
+    assert g_state.origin.dtype == w_state.origin.dtype == torch.int32
+    assert torch.equal(g_state.origin, w_state.origin)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("streams", [64, 512])
+def test_the_tracker_step_replays_a_graph_per_frames_buffer_bit_for_bit(cuda_device, streams):
+    """A pool of frame buffers cycled through ``process_batch``: the first
+    round runs eager, the second captures each buffer's graph, the rest
+    replay; every column and every next origin equals a recognizer kept on
+    the eager path bit for bit, and ``process_window`` over the pool (a
+    replay a frame) too.  A result returned at call n is unchanged after
+    calls n + 1 to n + pool.  Each step launches ``ncc_locate`` and
+    ``fused_match`` once by their counters, replays included."""
+    from face_detection_recognization_pca_tpu_torch.utils import profiling
+
+    pool, rounds, hw = 4, 4, (480, 640)
+    graphed, eager, frames, boxes0 = _graphed_and_eager(cuda_device, streams, hw, pool)
+    g_state = graphed.init_state(streams, hw, boxes0)
+    w_state = eager.init_state(streams, hw, boxes0)
+    kept = []
+    ncc0, fused0 = nl.ncc_locate.launches, tfm.fused_match.launches
+    try:
+        for call in range(pool * rounds):
+            profiling.enable(True)  # the graph path's counts only
+            got = graphed.process_batch(frames[call % pool], g_state)
+            profiling.enable(False)
+            want = eager.process_batch(frames[call % pool], w_state)
+            _assert_same_step(got, want)
+            (out, g_state), w_state = got, want[1]
+            kept.append((out, {key: v.clone() for key, v in out.items()}))
+            for old, copy in kept[-pool - 1:]:
+                assert all(torch.equal(old[key], copy[key]) for key in copy)
+        steps = pool * rounds
+        assert profiling.snapshot()["counters"] == {
+            "multistream.graph.eager": pool, "multistream.graph.capture": pool,
+            "multistream.graph.replay": steps - 2 * pool, "multistream.ncc.kernel": steps}
+        assert nl.ncc_locate.launches == ncc0 + 2 * steps
+        assert tfm.fused_match.launches == fused0 + 2 * steps
+        profiling.enable(True)
+        got = graphed.process_window(frames, g_state)
+        profiling.enable(False)
+        _assert_same_step(got, eager.process_window(frames, w_state))
+        assert profiling.snapshot()["counters"]["multistream.graph.replay"] == steps - pool
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert len(graphed._graphs.graphs) == pool
+
+
+@pytest.mark.gpu
+def test_a_replay_reads_what_its_buffer_holds_now(cuda_device):
+    """A frames buffer rewritten in place after its graph was captured: the
+    next replay gives the new frames' answers, as the eager path and as a
+    replay of the buffer the frames were copied from."""
+    pool, hw, streams = 3, (480, 640), 64
+    graphed, eager, frames, boxes0 = _graphed_and_eager(cuda_device, streams, hw, pool)
+    state = graphed.init_state(streams, hw, boxes0)
+    for _ in range(2):
+        for f in range(pool):
+            graphed.process_batch(frames[f], state)
+    assert len(graphed._graphs.graphs) == pool
+    before, _ = graphed.process_batch(frames[0], state)
+    before = {key: v.clone() for key, v in before.items()}
+    from_two = graphed.process_batch(frames[2], state)
+    frames[0].copy_(frames[2])
+    got = graphed.process_batch(frames[0], state)
+    _assert_same_step(got, eager.process_batch(frames[0], state))
+    _assert_same_step(got, from_two)
+    assert not torch.equal(got[0]["x"], before["x"]) or not torch.equal(got[0]["y"], before["y"])
+
+
+@pytest.mark.gpu
+def test_buffers_past_the_cap_run_eager_and_no_graph_is_evicted(cuda_device):
+    """MAX_GRAPHS + 2 buffers in rotation: the first round runs eager, the
+    second captures MAX_GRAPHS graphs and runs the last two eager, the
+    third replays the captured ones and runs the last two eager again;
+    every step equals the eager path's bits."""
+    from face_detection_recognization_pca_tpu_torch.parallel.step_graph import MAX_GRAPHS
+    from face_detection_recognization_pca_tpu_torch.utils import profiling
+
+    pool, hw, streams = MAX_GRAPHS + 2, (480, 640), 4
+    graphed, eager, frames, boxes0 = _graphed_and_eager(cuda_device, streams, hw, pool)
+    g_state = graphed.init_state(streams, hw, boxes0)
+    w_state = eager.init_state(streams, hw, boxes0)
+    profiling.enable(True)
+    try:
+        seen = []
+        for _ in range(3):
+            for f in range(pool):
+                got = graphed.process_batch(frames[f], g_state)
+                want = eager.process_batch(frames[f], w_state)
+                _assert_same_step(got, want)
+                g_state, w_state = got[1], want[1]
+            seen.append(dict(profiling.snapshot()["counters"]))
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    paths = [{key.rsplit(".", 1)[1]: n for key, n in c.items() if ".graph." in key}
+             for c in seen]
+    assert paths == [{"eager": pool},
+                     {"eager": pool + 2, "capture": MAX_GRAPHS},
+                     {"eager": pool + 4, "capture": MAX_GRAPHS, "replay": MAX_GRAPHS}]
+    assert len(graphed._graphs.graphs) == MAX_GRAPHS
+    # The recognizer and its graphs form no reference cycle: they go when it
+    # goes, not at a later collection, which could fall inside a capture.
+    gone = weakref.ref(graphed._graphs)
+    del graphed, got
+    assert gone() is None
 
 
 @pytest.mark.gpu
